@@ -1,6 +1,6 @@
 """Tile-sharded rendering + one training step over an 8-device mesh —
-the multi-chip path (gsjax.parallel). Runs on 8 virtual CPU devices here;
-the same code runs unchanged on a real TPU pod slice."""
+the multi-device path (gsjax.parallel). Runs on 8 virtual CPU devices
+here; the same code runs unchanged over a host's GPUs."""
 
 import os
 

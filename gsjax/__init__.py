@@ -1,4 +1,4 @@
-"""gsjax — TPU-native differentiable 3D Gaussian Splatting framework.
+"""gsjax — differentiable 3D Gaussian Splatting framework for the GPU.
 
 Built from scratch in JAX/Pallas with the capabilities of the reference
 browser renderer (Lanv1/gsplat.js, surveyed in SURVEY.md): .splat / .ply /

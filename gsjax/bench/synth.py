@@ -27,10 +27,9 @@ def bonsai_like(n: int = 1_200_000, seed: int = 0, sh_degree: int = 0) -> Gaussi
       - the log-normal scale tail is clamped at 0.04 world units:
         densification in 3DGS training splits oversized gaussians
         (graphdeco's percent_dense threshold), so converged scenes have
-        no unbounded size tail. Without these bounds the r1 generator
-        put >48 px footprints on HALF the scene (553k fat splats, 2.46M
-        coverage blocks at the bench camera — tools/probe_homesort.py),
-        which no real Bonsai reconstruction exhibits."""
+        no unbounded size tail. Without these bounds the generator puts
+        >48 px footprints on half the scene, which no real Bonsai
+        reconstruction exhibits."""
     rng = np.random.default_rng(seed)
     n_core = int(n * 0.8)
     n_bg = n - n_core

@@ -3,7 +3,7 @@
 Capability parity with OrbitControls (/root/reference/src/controls/
 OrbitControls.ts): the (alpha, beta, radius, target) orbit
 parameterization (:7-14) and the pose it derives per update (:264-307) —
-without the browser input handling, which has no TPU meaning. The damped
+without the browser input handling, which has no headless meaning. The damped
 lerp (:268-277) becomes an explicit trajectory generator so orbits are
 reproducible, jit-able camera paths (e.g. the 30-frame 1080p benchmark
 orbit of BASELINE config 3).

@@ -1,22 +1,18 @@
 """Occupancy pre-pass: derive every static capacity knob from one cheap
 measured pass over the actual (scene, camera) pair.
 
-The render pipeline's static budgets (band scratch, fat-split caps, pair
-budget, repack grid) were hand-tuned per scene via offline probes
-(tools/probe_band_occupancy.py, tools/probe_repack.py) — VERDICT r3 weak
-#6: a new scene/resolution needed a human in the loop, and a mis-sized
-cap is a hard bench failure (the gate) or silent slowdown (oversized
-grids). This module runs the cheap deterministic prefix of the pipeline
-once (project → home layout → pair expansion — no sort, no blend),
-measures the actual occupancies, and returns a RenderConfig with every
-cap sized at `slack` headroom:
+The render pipeline's static budgets (fat-split caps, pair budget,
+repack grid) depend on the scene and the camera: a mis-sized cap is a
+hard bench failure (the gate) or a silent slowdown (oversized grids).
+This module runs the cheap deterministic prefix of the pipeline once
+(project → home layout → pair expansion — no sort, no blend), measures
+the actual occupancies, and returns a RenderConfig with every cap sized
+at `slack` headroom:
 
   * fat_cap / fat_live_cap   — copy enumeration / live copy rows
   * pair_cap                 — live pairs (+ repack 128-pad slack)
   * repack_rows / repack_w   — greedy row packing SIMULATED exactly on
                                the measured per-tile candidate totals
-  * stream_band_cap          — worst-block rounded run occupancy
-                               (the arithmetic of pallas_stream.band_blocks)
 
 All caps remain static shapes: call this at load time (outside jit) and
 use the returned config for the training/render jit. Scene drift during
@@ -26,7 +22,7 @@ re-derive.
 
 The reference has no analogue (its only capacity is the 65,536-bucket
 sort histogram, hard-coded: /root/reference/wasm/wasm.cpp:33); this is
-the TPU-native cost of static shapes, paid once per scene.
+the cost of static shapes, paid once per scene.
 """
 
 from __future__ import annotations
@@ -148,31 +144,6 @@ def _simulate_greedy_rows(cand, w_eff: int) -> int:
     return rows + (1 if fill > 0 else 0)
 
 
-def _band_worst_block(seg, tiles_x, tiles_y, blkw, dmach) -> int:
-    """Worst-block dmach-rounded scratch requirement — vectorized form of
-    pallas_stream.band_blocks' run partition (see
-    tools/probe_band_occupancy.py)."""
-    nbx = _ceil(tiles_x, blkw)
-    y = np.arange(tiles_y)[:, None, None]  # [Y, 1, 1]
-    bx = np.arange(nbx)[None, :, None]  # [1, B, 1]
-    r = np.arange(3)[None, None, :]  # [1, 1, 3]
-    row = y - 1 + r
-    ok = (row >= 0) & (row < tiles_y)
-    rowc = np.clip(row, 0, tiles_y - 1)
-    c0 = np.clip(bx * blkw - 1, 0, tiles_x)
-    c1 = np.clip(bx * blkw + blkw + 1, 0, tiles_x)
-    s = np.where(ok, seg[rowc * tiles_x + c0], 0)
-    e = np.where(ok, seg[rowc * tiles_x + c1], 0)
-    st0 = (s[..., 0] // dmach) * dmach
-    en0 = np.maximum(st0, _ceil(e[..., 0], dmach) * dmach)
-    st1 = np.maximum((s[..., 1] // dmach) * dmach, en0)
-    en1 = np.maximum(st1, _ceil(e[..., 1], dmach) * dmach)
-    st2 = np.maximum((s[..., 2] // dmach) * dmach, en1)
-    en2 = np.maximum(st2, _ceil(e[..., 2], dmach) * dmach)
-    need = (en0 - st0) + (en1 - st1) + (en2 - st2)
-    return int(need.max())
-
-
 def derive_caps(
     g, cam, cfg: RenderConfig = RenderConfig(), slack: float = 1.2,
     ms=None,
@@ -236,44 +207,6 @@ def derive_caps(
         int(max(m["n_pairs"] for m in ms) * slack) + 128 * repack_rows, 128
     )
 
-    # band scratch: worst block at the configured (blkw, dmach), VMEM
-    # bounded — shrink the block width if the dense center outgrows it
-    blkw = cfg.stream_block_tiles
-    dmach = cfg.stream_dma_chunk
-    vmem_rows = 48 if cfg.stream_exact_table else 32
-    # bwd VMEM: band (vmem_rows bf16) + dcand + stage (16 f32 each) per
-    # lane = (2·vmem_rows + 128) B/row; ~2.5 MB of the 16 goes to block
-    # double-buffers + kernel stack (measured: 61440 rows at 48-row
-    # tables = 16.07M > the 16M scoped limit — a 14 MB budget was 76 KB
-    # short), so budget 12.5 MB for the cap-proportional part
-    vmem_budget = 25 * 2**19
-    if cfg.stream_oh_cache:
-        # the backward's one-hot cache scratch comes out of the same
-        # VMEM pool ([9·chunk, 128] bf16)
-        vmem_budget -= 9 * cfg.chunk * 128 * 2
-    cap_budget = vmem_budget // (vmem_rows * 2 + 2 * 16 * 4)
-    cap_budget = (cap_budget // dmach) * dmach
-    while True:
-        worst = max(
-            _band_worst_block(
-                m["seg"], m["tiles_x"], m["tiles_y"], blkw, dmach
-            )
-            for m in ms
-        )
-        need = _round_up(int(worst), dmach)
-        if need <= cap_budget or blkw <= 2:
-            break
-        blkw -= 1
-    if need > cap_budget:
-        raise ValueError(
-            f"band scratch requirement {need} rows exceeds the VMEM "
-            f"budget ({cap_budget}) even at stream_block_tiles=2; reduce "
-            f"stream_dma_chunk or the scene density"
-        )
-    band_cap = min(
-        _round_up(int(worst * min(slack, 1.25)), dmach), cap_budget
-    )
-
     return dataclasses.replace(
         cfg,
         fat_cap=fat_cap,
@@ -281,8 +214,6 @@ def derive_caps(
         pair_cap=pair_cap,
         repack_w=w,
         repack_rows=repack_rows,
-        stream_band_cap=band_cap,
-        stream_block_tiles=blkw,
     )
 
 
@@ -320,11 +251,8 @@ def derive_row_cuts(g, cam, cfg: RenderConfig, n_devices: int, m=None,
     measure_occupancy dict) skips re-measuring.
 
     `row_weight` adds a per-tile-row constant (in candidate units) to
-    the balanced mass: the lazy band step's measured cost is
-    ≈ a·candidates + b·rows (each touched column block pays its
-    dmach-rounded band DMA/flush regardless of content, so sparse
-    many-row bands are row-bound — tools/bench_scaling_lazy.py fits
-    a, b and passes row_weight = b/a)."""
+    the balanced mass, for a step whose cost is ≈ a·candidates + b·rows
+    (pass row_weight = b/a)."""
     if m is None:
         m = measure_occupancy(g, cam, cfg)
     row_cand = (
@@ -429,9 +357,7 @@ def derive_shard_caps(
 
     # the full-image caps (fat enumeration, repack rows) must ALSO scale
     # to the worst band, or the band's homesort and repack sort run at
-    # full-scene size regardless of the prefilter/slice (measured: the
-    # D=8 band's homesort cost MORE than the full scene's with the
-    # full-image fat caps left in place — render/DESIGN.md r4)
+    # full-scene size regardless of the prefilter/slice
     pref_share = min(pref_cap / max(n, 1), 1.0)
     fat_cap = cfg.fat_cap
     if fat_cap is not None:

@@ -8,7 +8,7 @@ vertex.glsl.ts:180-189). The round-1 loader zero-padded every group to
 K=16 — a band-0 splat carried 192 B of dead SH (≈1 GB at 5M splats) and
 paid full degree-3 evaluation.
 
-`BandedGaussians` is the TPU-native equivalent: an ordered tuple of
+`BandedGaussians` is the equivalent here: an ordered tuple of
 `Gaussians` groups, each with its OWN K ∈ {1, 4, 9, 16}. Projection runs
 per group (static shapes per group → one fused elementwise XLA kernel
 each, evaluating only that group's basis functions) and concatenates the

@@ -79,7 +79,7 @@ class Camera:
         """[4, 4] world→camera (≙ Camera.getViewMatrix, Camera.ts:32-56)."""
         Rc2w = self.rotation_c2w()
         Rw2c = Rc2w.T
-        t = -Rw2c @ self.position
+        t = -jnp.matmul(Rw2c, self.position, precision="highest")
         m = jnp.eye(4, dtype=jnp.float32)
         m = m.at[:3, :3].set(Rw2c)
         m = m.at[:3, 3].set(t)
@@ -99,7 +99,9 @@ class Camera:
         return P
 
     def view_proj(self) -> jax.Array:
-        return self.proj_matrix() @ self.view_matrix()
+        return jnp.matmul(
+            self.proj_matrix(), self.view_matrix(), precision="highest"
+        )
 
     def tan_half_fov(self):
         return (

@@ -28,10 +28,12 @@ class RenderConfig:
     # per-tile list capacity for the padded-list (XLA) backend; overflow is
     # dropped far-to-near and counted in RenderAux.n_tile_overflow.
     tile_list_cap: int = 1024
-    # total-pair budget for the flat (pallas) backend; None = no cap
+    # total-pair budget for the stream backend; None = no cap
     # (tile_span² · N slots). Overflow is counted in RenderAux.
     pair_cap: int | None = None
-    chunk: int = 128  # splat chunk per compositing step
+    # pairs per compositing step: the XLA blend's scan chunk, and the
+    # stream kernel's early-termination check interval
+    chunk: int = 128
     near_cull: float = 0.2
     lowpass: float = 0.3
     alpha_clamp: float = 0.99
@@ -39,7 +41,7 @@ class RenderConfig:
     transmittance_eps: float = 1e-4
     radius_sigma: float = 3.0
     background: tuple = (0.0, 0.0, 0.0)
-    backend: str = "auto"  # oracle | xla | pallas | stream | auto
+    backend: str = "auto"  # oracle | xla | stream | auto
     # --- footprint semantics ---
     # False (default): EXACT graphdeco footprints. The oracle renders the
     # full radius rect (like the reference's 1024-px axes,
@@ -64,42 +66,15 @@ class RenderConfig:
     fat_max_blocks: int = 1023
     fat_cap: int | None = None
     fat_live_cap: int | None = None
-    # --- stream backend (render/pallas_stream.py) ---
-    # VMEM band-scratch capacity in home-layout rows (the 3-tile-row ×
-    # (block+halo)-column candidate window); overflow is truncated and
-    # counted in RenderAux.n_band_overflow. Sized from
-    # tools/probe_band_occupancy.py at the 1080p bench: worst block
-    # EXACT extent 43,959 rows at width 6; with dmach=2048 the 3-run
-    # rounding brings the requirement to 51,200 — 53,248 leaves one
-    # chunk of slack (dmach=1024 would allow a 49,152 cap but costs
-    # ~35 ms/frame of per-chunk DMA fori overhead in the band loads). (The r2 cap of 57,344 with dmach=4096 was SHORT:
-    # rounding pushed the worst block to 61,440 → the 3,705-row overflow
-    # shipped in BENCH_r02.json.) The backward's three cap-sized scratch
-    # buffers put ~9 MB of the 16 MB VMEM behind this number.
-    stream_band_cap: int = 53248
-    # tiles per band column-block (plus 1 halo tile each side); smaller
-    # blocks bound the dense-center worst case under stream_band_cap
-    stream_block_tiles: int = 6
-    # lanes per band DMA chunk (multiple of 128); smaller chunks waste
-    # less cap to per-run rounding (3 runs × up to 2·(dmach−1) rows)
-    stream_dma_chunk: int = 2048
-    # exact attribute mode: the bf16 hi/lo split table (16+ mantissa
-    # bits, ~2^-17 relative on means/conic) gains a third part so the
-    # one-hot MXU selection reconstructs every f32 EXACTLY — the blend
-    # then reads bit-exact attributes (stream == xla to f32 rounding).
-    # Costs ~1.5x band-DMA traffic + VMEM; default off for speed, on in
-    # the exact-compare tests.
-    stream_exact_table: bool = False
     # --- bucket-repack pair sort (render/repack.py) ---
     # replace the global (tile, depth) lax.sort with balanced 2-D row
-    # sorts (~1.1 vs ~4 ns/elem measured, tools/probe_repack.py) + live
-    # compaction. Only the exact-footprint home-anchored path uses it.
+    # sorts + live compaction (render/repack.py). Only the
+    # exact-footprint home-anchored path uses it.
     pair_repack: bool = True
     # sort-row width in lanes; rows pack whole tiles greedily to
     # repack_w - ~2.4k block-rounding slack, so a single tile's
     # candidate total (live + culled expansion slots of its 9 class
-    # segments; ~17k at the 1080p bench scenes) must fit under that —
-    # overflow is counted
+    # segments) must fit under that — overflow is counted
     repack_w: int = 32768
     # assumed average row fill (None = 13·repack_w/16) — sizes the
     # static row count R = ceil(min(repack_cap, K·NH)/Q)+1; R·W is the
@@ -107,9 +82,9 @@ class RenderConfig:
     # the grid (counted, bench-gated)
     repack_q: int | None = None
     # candidate-stream capacity (live + dead expansion slots). None =
-    # the K·NH worst case — far above real occupancy for big scenes
-    # (garden: 64M worst case vs 31M measured), so derive_caps sizes it
-    # from a measured occupancy pre-pass (core/autotune.py)
+    # the K·NH worst case — far above real occupancy for big scenes, so
+    # derive_caps sizes it from a measured occupancy pre-pass
+    # (core/autotune.py)
     repack_cap: int | None = None
     # direct row-count override (highest precedence): derive_caps sets
     # this from an exact greedy-packing simulation of the measured
@@ -131,20 +106,6 @@ class RenderConfig:
     # enough for the dense center band = no 1/D shrink at all)
     shard_prefilter_cap: int | None = None
     shard_slice_cap: int | None = None
-    # slot-group size: each stream-kernel grid step processes this many
-    # consecutive same-tile chunk slots, amortizing the ~0.5 µs per-step
-    # grid overhead (~82% of slots are skipped by early termination at
-    # the 1080p bench — see render/DESIGN.md)
-    stream_unroll: int = 4
-    # backward kernel: cache the gather rounds' one-hot matrices in a
-    # [9·chunk, 128] bf16 VMEM scratch so the transposed grad scatter
-    # reuses them instead of rebuilding identical compare chains
-    # (+288 KB VMEM at chunk=128; autotune deducts it from the band
-    # budget). MEASURED NO WIN (bwd 71.0 -> 71.5 ms: the compiler
-    # already CSEs the identical compare chains within the kernel
-    # trace — DESIGN.md dead ends); kept off by default, covered by a
-    # bit-equal-gradient test.
-    stream_oh_cache: bool = False
 
     def tiles_x(self, width: int) -> int:
         return -(-width // self.tile_size)

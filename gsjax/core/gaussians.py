@@ -124,8 +124,8 @@ class Gaussians:
         R = self.rotation_matrices()
         S = self.scales
         M = R * S[:, None, :]  # R @ diag(S)
-        # explicit f32 precision: TPU default matmul precision is bf16,
-        # far too coarse for covariance geometry
+        # explicit f32 precision: a default-precision f32 matmul may run
+        # in TF32 on the GPU, far too coarse for covariance geometry
         return jnp.matmul(M, jnp.swapaxes(M, -1, -2), precision="highest")
 
     # -- shape utilities ----------------------------------------------------

@@ -55,7 +55,7 @@ def rotate(g: Gaussians, quat) -> Gaussians:
     quat = jnp.asarray(quat, jnp.float32)
     quat = quat / jnp.maximum(jnp.linalg.norm(quat), 1e-12)
     R = quat_to_rotmat(quat)
-    means = g.means @ R.T
+    means = jnp.matmul(g.means, R.T, precision="highest")
     quats = quat_multiply(quat[None, :], g.normalized_quats())
     return dataclasses.replace(g, means=means, quats=quats)
 

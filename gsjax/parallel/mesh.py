@@ -1,10 +1,11 @@
 """Device mesh construction for tile-sharded rendering.
 
 The reference's entire concurrency inventory is one Web Worker
-(SURVEY §2.5); the TPU framework scales instead by SPMD over a device
-mesh: image tile rows sharded across chips on the `tiles` axis, splat
-parameters replicated, parameter gradients all-reduced (`psum`) over ICI
-(BASELINE north star; SURVEY §5.8).
+(SURVEY §2.5); this framework scales instead by SPMD over a device
+mesh: image tile rows sharded across devices on the `tiles` axis, splat
+parameters replicated, parameter gradients all-reduced (`psum`)
+(BASELINE north star; SURVEY §5.8). The GPUs of one host are joined all
+to all, so the mesh is 1-D and follows the tile rows alone.
 """
 
 from __future__ import annotations
@@ -32,8 +33,10 @@ def init_multihost(coordinator_address=None, num_processes=None, process_id=None
     """Initialize the JAX multi-process runtime for a multi-host pod
     (SURVEY §5.8): after this, `jax.devices()` spans every host and
     `make_mesh()` builds one global `tiles` mesh — the same pjit program
-    then runs with collectives riding ICI within a host and DCN across.
-    No-op arguments fall back to the TPU pod's automatic discovery."""
+    then runs with collectives riding NVLink within a host and the
+    network across. Arguments left None fall back to JAX's cluster
+    auto-detection, which needs a cluster environment; a bare machine
+    must pass all three."""
     import jax
 
     kwargs = {}

@@ -3,17 +3,17 @@
 Design (SURVEY §2.5 / §5.8, BASELINE configs 4-5):
   - splat parameters replicated on every chip (they are small next to the
     pair/pixel work; ≤ a few hundred MB for 5M splats),
-  - the image's tile rows sharded over the `tiles` mesh axis: every chip
-    projects all splats (cheap, elementwise) and builds the (home, depth)
-    layout (replicated — it is how a chip finds its band), then SLICES
-    the layout to its band's contiguous home-row range
-    (homesort.slice_band_rows): the pair expansion, (tile, depth) sort,
-    pid windows and blend kernels all run on the band share, so the
-    dominant costs scale ~1/D by construction (tests assert the
-    per-device sorted sizes shrink),
+  - the image's tile rows sharded over the `tiles` mesh axis: every
+    device projects all splats (cheap, elementwise), prefilters those
+    that can reach its band, builds their (home, depth) layout, then
+    SLICES it to the band's contiguous home-row range
+    (homesort.slice_band_rows): the pair expansion, (tile, depth) sort
+    and blend kernels all run on the band share, so the dominant costs
+    scale ~1/D by construction (tests assert the per-device sorted sizes
+    shrink),
   - the loss is a local mean over the band + `psum`; parameter gradients
-    come out of the local backward and are `psum`ed over ICI (XLA overlaps
-    the all-reduce with the remaining backward work).
+    come out of the local backward and are `psum`ed (XLA hands the
+    all-reduce to NCCL and overlaps it with the remaining backward).
 
 The reference's analogue of this layer is postMessage+transferable
 buffers between the render thread and the sort worker
@@ -30,6 +30,7 @@ import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 from jax import shard_map
 
+from gsjax import device
 from gsjax.core.camera import Camera
 from gsjax.core.config import RenderConfig
 from gsjax.core.gaussians import Gaussians
@@ -48,23 +49,16 @@ def _render_band(g, cam, cfg, ty0, band, rows_live=None):
     expansion bound their content to [ty0, ty0+rows_live) while every
     shape stays `band`-static, so per-device cost tracks the owned
     CONTENT share (~1/D for equal-content cuts) instead of the worst
-    equal-rows band (measured: with static worst-band caps both D=2
-    bands cost the same 339 ms regardless of content — shapes, not
-    work, set the time).
+    equal-rows band (with static worst-band caps, shapes and not work
+    would set the time).
 
-    Stream path: the (home, depth) sort itself is replicated (every
-    device needs the full layout to find its band), but the layout is
+    Stream path: the band prefilter compacts the splats whose rect can
+    reach the band before the (home, depth) sort, and the layout is
     then RESTRICTED to the band's contiguous home-row range
     (homesort.slice_band_rows) before anything expensive runs — pair
-    expansion, the (tile, depth) sort, pid windows, and both blend
-    kernels all operate on a static band-share-sized slice, so
-    per-device work past the layout genuinely scales ~1/D (r2 shipped a
-    version that sorted the FULL pair stream per device and merely
-    marked out-of-band pairs invalid)."""
-    backend = cfg.backend
-    if backend in ("auto", "pallas"):
-        backend = "stream" if jax.default_backend() == "tpu" else "xla"
-    if backend == "stream":
+    expansion, the (tile, depth) sort and both blend kernels operate on
+    a static band-share-sized slice, so per-device work scales ~1/D."""
+    if device.resolve_backend(cfg.backend) == "stream":
         from gsjax.render.homesort import (
             band_prefilter,
             band_prefilter_cap,
@@ -157,15 +151,22 @@ def _aux_counters(aux):
     }
 
 
-def _image_px(cam: Camera, cfg: RenderConfig) -> int:
-    """Tile-rounded image pixel count — the loss normalizer shared by the
-    contiguous and balanced splits (padded rows are black in both render
-    and target, so only the CONSTANT matters; normalizing each split by
-    its own padding made the two losses differ whenever tiles_y % D != 0)."""
-    return (
-        cfg.tiles_y(cam.height) * cfg.tile_size
-        * cfg.tiles_x(cam.width) * cfg.tile_size
-    )
+def _image_px(cam: Camera) -> int:
+    """The loss normalizer of every split: the image's pixel count, so a
+    sharded loss equals jnp.mean over the [H, W, 3] render."""
+    return cam.height * cam.width
+
+
+def _in_image(cam: Camera, cfg: RenderConfig, row0, n_rows: int):
+    """[n_rows·ts, tiles_x·ts, 1] mask of a band's pixels that lie inside
+    the image. A band's last tile row and column can reach past the
+    image, where the render is NOT black (splats cover those pixels) but
+    the single-device render crops them; the loss must ignore them.
+    `row0` (first tile row) may be traced."""
+    ts = cfg.tile_size
+    r = row0 * ts + jnp.arange(n_rows * ts, dtype=jnp.int32)
+    c = jnp.arange(cfg.tiles_x(cam.width) * ts, dtype=jnp.int32)
+    return ((r < cam.height)[:, None] & (c < cam.width)[None, :])[..., None]
 
 
 def make_train_step(cam: Camera, cfg: RenderConfig, mesh, optimizer):
@@ -179,14 +180,17 @@ def make_train_step(cam: Camera, cfg: RenderConfig, mesh, optimizer):
     tiles_x·tile_size (use `pad_target`)."""
     n_dev = mesh.shape[TILES_AXIS]
     band = band_rows_for(cfg, cam.height, n_dev)
-    n_px_total = _image_px(cam, cfg)
+    n_px_total = _image_px(cam)
 
     def local_loss_and_grad(g, target_band):
         d = jax.lax.axis_index(TILES_AXIS)
+        inside = _in_image(cam, cfg, d * band, band)
 
         def loss_fn(g):
             img, aux = _render_band(g, cam, cfg, d * band, band)
-            loss = jnp.sum((img - target_band) ** 2) / (n_px_total * 3)
+            loss = jnp.sum(jnp.where(inside, (img - target_band) ** 2, 0.0)) / (
+                n_px_total * 3
+            )
             return loss, _aux_counters(aux)
 
         (loss, aux), grads = jax.value_and_grad(loss_fn, has_aux=True)(g)
@@ -230,31 +234,16 @@ def pad_target(cfg: RenderConfig, cam: Camera, target, n_devices: int):
 # --------------------------------------------------------------------------
 
 
-def make_train_step_equalized(cam: Camera, cfg: RenderConfig, mesh,
-                              optimizer, row_cuts):
-    """Tile-sharded training step over an EQUAL-CONTENT row partition:
-    device d owns tile rows [row_cuts[d], row_cuts[d+1]) — cuts chosen
-    (autotune.derive_row_cuts) so every band holds ≈ the same candidate
-    mass. All devices run one static program sized for the largest
-    band's ROW count, but the prefilter/slice/expansion bound their
-    content to each device's owned rows (rows_live), so per-device cost
-    tracks the ~1/D content share — on skewed scenes the equal-ROWS
-    split pins every device to the dense center band's static cost
-    (measured 57% efficiency ceiling at D=2; see render/DESIGN.md r4).
-
-    The loss masks rows beyond each device's owned range, so the psum
-    over devices equals the whole-image loss exactly (each pixel row is
-    owned by exactly one device); `target` must be the pad_target_rows
-    padded full image, replicated."""
-    import numpy as np
-
+def make_grad_equalized(cam: Camera, cfg: RenderConfig, mesh, row_cuts):
+    """(g, target) → (loss, grads, aux): the sharded loss and parameter
+    gradients of make_train_step_equalized, before the optimizer."""
     cuts = [int(c) for c in row_cuts]
     n_dev = mesh.shape[TILES_AXIS]
     assert len(cuts) == n_dev + 1
     rows_d = [cuts[i + 1] - cuts[i] for i in range(n_dev)]
     band_max = max(rows_d)
     ts = cfg.tile_size
-    n_px_total = _image_px(cam, cfg)
+    n_px_total = _image_px(cam)
     ty0s = jnp.asarray(cuts[:-1], jnp.int32)
     livs = jnp.asarray(rows_d, jnp.int32)
 
@@ -263,7 +252,9 @@ def make_train_step_equalized(cam: Camera, cfg: RenderConfig, mesh,
         ty0 = ty0s[d]
         rows_live = livs[d]
         trow = jnp.arange(band_max * ts, dtype=jnp.int32)
-        own = (trow < rows_live * ts)[:, None, None]
+        own = (trow < rows_live * ts)[:, None, None] & _in_image(
+            cam, cfg, ty0, band_max
+        )
         tband = jax.lax.dynamic_slice_in_dim(
             target_full, ty0 * ts, band_max * ts, axis=0
         )
@@ -281,13 +272,34 @@ def make_train_step_equalized(cam: Camera, cfg: RenderConfig, mesh,
         aux = jax.lax.psum(aux, TILES_AXIS)
         return loss, grads, aux
 
-    sharded_grad = shard_map(
-        local_loss_and_grad,
-        mesh=mesh,
-        in_specs=(P(), P()),
-        out_specs=(P(), P(), P()),
-        check_vma=False,
+    return jax.jit(
+        shard_map(
+            local_loss_and_grad,
+            mesh=mesh,
+            in_specs=(P(), P()),
+            out_specs=(P(), P(), P()),
+            check_vma=False,
+        )
     )
+
+
+def make_train_step_equalized(cam: Camera, cfg: RenderConfig, mesh,
+                              optimizer, row_cuts):
+    """Tile-sharded training step over an EQUAL-CONTENT row partition:
+    device d owns tile rows [row_cuts[d], row_cuts[d+1]) — cuts chosen
+    (autotune.derive_row_cuts) so every band holds ≈ the same candidate
+    mass. All devices run one static program sized for the largest
+    band's ROW count, but the prefilter/slice/expansion bound their
+    content to each device's owned rows (rows_live), so per-device cost
+    tracks the ~1/D content share — on skewed scenes the equal-ROWS
+    split pins every device to the dense center band's static cost
+    (render/DESIGN.md).
+
+    The loss masks rows beyond each device's owned range and pixels
+    outside the image, so the psum over devices equals the whole-image
+    loss exactly (each image pixel is owned by exactly one device);
+    `target` must be the pad_target_rows padded full image, replicated."""
+    sharded_grad = make_grad_equalized(cam, cfg, mesh, row_cuts)
 
     import optax
 
@@ -332,14 +344,14 @@ def make_train_step_balanced(cam: Camera, cfg: RenderConfig, mesh, optimizer):
 
     n_dev = mesh.shape[TILES_AXIS]
     gband = band_rows_balanced(cfg, cam.height, n_dev)
-    # normalize by the tile-rounded IMAGE size (same constant as
-    # make_train_step — _image_px): padding rows are black in both the
-    # render and the target, so the loss equals the contiguous split's
-    # bit-for-bit and gradients carry the same scale
-    n_px_total = _image_px(cam, cfg)
+    n_px_total = _image_px(cam)
 
     def local_loss_and_grad(g, target_band):
         d = jax.lax.axis_index(TILES_AXIS)
+        inside = jnp.concatenate([
+            _in_image(cam, cfg, d * gband, gband),
+            _in_image(cam, cfg, (d + n_dev) * gband, gband),
+        ])
 
         def loss_fn(g):
             img0, aux0 = _render_band(g, cam, cfg, d * gband, gband)
@@ -347,7 +359,9 @@ def make_train_step_balanced(cam: Camera, cfg: RenderConfig, mesh, optimizer):
                 g, cam, cfg, (d + n_dev) * gband, gband
             )
             img = jnp.concatenate([img0, img1])
-            loss = jnp.sum((img - target_band) ** 2) / (n_px_total * 3)
+            loss = jnp.sum(jnp.where(inside, (img - target_band) ** 2, 0.0)) / (
+                n_px_total * 3
+            )
             aux = jax.tree.map(
                 jnp.add, _aux_counters(aux0), _aux_counters(aux1)
             )

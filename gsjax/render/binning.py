@@ -4,22 +4,18 @@ This generalizes the reference's native depth sorter — the C++/WASM
 16-bit counting sort over all splats (/root/reference/wasm/wasm.cpp:33-51,
 dispatched asynchronously from a Web Worker, Worker.ts:36-43) — to the
 (tile, depth) radix key that tile-based rasterization needs, running
-synchronously inside the jitted step (SURVEY §2.2: the async worker has no
-TPU analogue; the sort is a device op).
+synchronously inside the jitted step (SURVEY §2.2: the sort is a device
+op).
 
-Mechanism (XLA backend):
+Mechanism:
   1. pair expansion — each splat emits up to tile_span² (tile, depth-key)
      pairs covering its footprint rect, enumerated in a static slot grid
-     (static shapes; oversized footprints are clamped and counted),
-  2. one `lax.sort` over packed u32 keys (tile ≪ 19 | depth), payload =
-     splat id — tile-major, then near-to-far, stable in splat order, which
-     matches the oracle's stable depth argsort exactly,
-  3. per-tile segment starts by binary search over the sorted keys
-     (8k queries into the sorted array — the cheap direction on TPU).
-
-Empirically on v5e, XLA's sort is ~2.5 ms/M pairs and dominates binning;
-a fused Pallas radix-partition pass is the planned replacement (see
-render/DESIGN.md).
+     (static shapes), with an exact ellipse-tile cull,
+  2. one sort over (tile, depth bits, pair id) — tile-major, then
+     near-to-far, ties by pair id, which matches the oracle's stable
+     depth argsort exactly (the exact-footprint path uses the bucket
+     repack of render/repack.py instead),
+  3. per-tile segment starts by binary search over the sorted keys.
 """
 
 from __future__ import annotations
@@ -29,14 +25,14 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from gsjax.core.camera import Camera
 from gsjax.core.config import RenderConfig
 from gsjax.render.common import (
     MAX_TILES,
     clamp_rect_to_span,
+    cull_threshold,
+    rect_qmin,
     tile_rect,
 )
 from gsjax.render.project import ProjectedSplats
@@ -45,162 +41,52 @@ from gsjax.render.project import ProjectedSplats
 # 3-operand radix sort a plain signed sort)
 INVALID_TILE = jnp.int32(0x7FFFFFFF)
 
-_EXPAND_R = 4096  # home rows per expansion-kernel grid step
+_EXPAND_R = 4096  # home-row padding of the expansion grid
 
 
-def _expand_kernel(meta_ref, in_ref, tile_ref, pid_ref, *, span, k_slots):
-    """Per-(home row, class) pair expansion + exact ellipse-tile cull,
-    fused in one pass. XLA's lowering of the same math materializes
-    dozens of [NH, 9] temporaries (measured 48 ms at the 1080p bench,
-    tools/probe_front.py); here it is a single bandwidth-bound sweep.
-
-    in rows: 0 hx, 1 hy, 2 wx0, 3 wx1, 4 wy0, 5 wy1, 6 validf, 7 mx,
-    8 my, 9 ca, 10 cb, 11 cc, 12 thr, 13 -cb/cc, 14 -cb/ca (f32; int
-    columns are exact f32 values). meta: [ty0, band_rows, tiles_x, ts].
-    Outputs per class c: band tile id (INVALID for dead pairs) and
-    pid = row·k_slots + c."""
-    ty0, band_rows, tiles_x = meta_ref[0], meta_ref[1], meta_ref[2]
-    ts = meta_ref[3]
-    r = in_ref.shape[1]
-    base_row = pl.program_id(0) * r
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, r), 1) + base_row
-    hx = in_ref[0:1, :].astype(jnp.int32)
-    hy = in_ref[1:2, :].astype(jnp.int32)
-    wx0 = in_ref[2:3, :].astype(jnp.int32)
-    wx1 = in_ref[3:4, :].astype(jnp.int32)
-    wy0 = in_ref[4:5, :].astype(jnp.int32)
-    wy1 = in_ref[5:6, :].astype(jnp.int32)
-    okv = in_ref[6:7, :] > 0.5
-    mx, my = in_ref[7:8, :], in_ref[8:9, :]
-    ca, cb, cc = in_ref[9:10, :], in_ref[10:11, :], in_ref[11:12, :]
-    thr = in_ref[12:13, :]
-    ncbrcc, ncbrca = in_ref[13:14, :], in_ref[14:15, :]
-    ts_f = ts.astype(jnp.float32)
-
-    h = span // 2
-    for c in range(k_slots):
-        dx_t, dy_t = c % span, c // span
-        tx = hx + (dx_t - h)
-        ty = hy + (dy_t - h)
-        ok = (
-            okv
-            & (tx >= wx0) & (tx < wx1)
-            & (ty >= wy0) & (ty < wy1)
-            & (ty >= ty0) & (ty < ty0 + band_rows)
-        )
-        # exact ellipse-tile cull (same closed form as the XLA path)
-        dxl = tx.astype(jnp.float32) * ts_f - mx
-        dxr = dxl + (ts_f - 1.0)
-        dyl = ty.astype(jnp.float32) * ts_f - my
-        dyr = dyl + (ts_f - 1.0)
-        inside = (dxl <= 0) & (dxr >= 0) & (dyl <= 0) & (dyr >= 0)
-
-        def edge_x(dx):
-            dy = jnp.clip(ncbrcc * dx, dyl, dyr)
-            return ca * dx * dx + 2.0 * cb * dx * dy + cc * dy * dy
-
-        def edge_y(dy):
-            dx = jnp.clip(ncbrca * dy, dxl, dxr)
-            return ca * dx * dx + 2.0 * cb * dx * dy + cc * dy * dy
-
-        qmin = jnp.minimum(
-            jnp.minimum(edge_x(dxl), edge_x(dxr)),
-            jnp.minimum(edge_y(dyl), edge_y(dyr)),
-        )
-        ok &= inside | (qmin <= thr)
-        tile_ref[c : c + 1, :] = jnp.where(
-            ok, (ty - ty0) * tiles_x + tx, jnp.int32(0x7FFFFFFF)
-        )  # INVALID_TILE (a python literal: pallas kernels cannot
-        #    capture traced module-level constants)
-        pid_ref[c : c + 1, :] = lane * k_slots + c
-
-
-def expand_pairs_pallas(cols, meta, nh_pad, span: int):
-    """cols [16, NH_pad] f32 (15 data rows + pad), meta [4] i32 →
-    (tile [K, NH_pad] i32, pid [K, NH_pad] i32), class-major."""
-    k_slots = span * span
-    kern = partial(_expand_kernel, span=span, k_slots=k_slots)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(nh_pad // _EXPAND_R,),
-        in_specs=[
-            pl.BlockSpec(
-                (16, _EXPAND_R), lambda i, m: (0, i),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=[
-            pl.BlockSpec(
-                (k_slots, _EXPAND_R), lambda i, m: (0, i),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (k_slots, _EXPAND_R), lambda i, m: (0, i),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-    )
-    return pl.pallas_call(
-        kern,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((k_slots, nh_pad), jnp.int32),
-            jax.ShapeDtypeStruct((k_slots, nh_pad), jnp.int32),
-        ],
-        interpret=jax.default_backend() != "tpu",
-    )(meta, cols)
-
-
-def expand_home_pairs(p, layout, ty0, band_rows: int, tiles_x: int, cfg):
-    """Exact-mode pair expansion over the home layout: window = each
-    home row's block ∩ rect (computed by homesort); expansion + exact
-    ellipse cull run in one fused Pallas sweep (the XLA lowering
-    materialized dozens of [NH, 9] temporaries — 48 ms/frame,
-    tools/probe_front.py). Shared by build_tile_bins and the occupancy
-    pre-pass (core/autotune.py). Returns (tile2d [K, nh_pad] i32 band
-    tile ids with INVALID for dead pairs, pid2d [K, nh_pad] i32,
+def expand_home_pairs(p, layout, ty0, band_rows, tiles_x: int, cfg):
+    """Exact-mode pair expansion over the home layout: home row r emits
+    class c's pair at tile home + (c % span − h, c // span − h) when
+    that tile lies in the row's window (its block ∩ rect, computed by
+    homesort), in the band, and inside the splat's alpha_min ellipse.
+    Shared by build_tile_bins and the occupancy pre-pass
+    (core/autotune.py). Returns (tile2d [K, nh_pad] i32 band tile ids
+    with INVALID for dead pairs, pid2d [K, nh_pad] i32 = row·K + class,
     dbits [nh_pad] i32 depth bits, nh_pad)."""
+    with jax.named_scope("pair_expansion"):
+        return _expand_home_pairs(p, layout, ty0, band_rows, tiles_x, cfg)
+
+
+def _expand_home_pairs(p, layout, ty0, band_rows, tiles_x: int, cfg):
     n = p.depth.shape[0]
     span = cfg.tile_span
+    k_slots = span * span
+    h = span // 2
     nh_pad = -(-n // _EXPAND_R) * _EXPAND_R
-    ca1, cb1, cc1 = p.conic[:, 0], p.conic[:, 1], p.conic[:, 2]
-    thr1 = 2.0 * jnp.log(
-        jnp.maximum(p.opacity, cfg.alpha_min) / cfg.alpha_min
-    ) + 1e-3
-    cols = jnp.stack(
-        [
-            layout.home_x.astype(jnp.float32),
-            layout.home_y.astype(jnp.float32),
-            layout.win[:, 0].astype(jnp.float32),
-            layout.win[:, 1].astype(jnp.float32),
-            layout.win[:, 2].astype(jnp.float32),
-            layout.win[:, 3].astype(jnp.float32),
-            p.valid.astype(jnp.float32),
-            p.mean2d[:, 0],
-            p.mean2d[:, 1],
-            ca1,
-            cb1,
-            cc1,
-            thr1,
-            -cb1 / cc1,
-            -cb1 / ca1,
-            jnp.zeros_like(thr1),
-        ]
-    )  # [16, N]
-    cols = jnp.pad(cols, ((0, 0), (0, nh_pad - n)))
-    meta = jnp.stack(
-        [
-            jnp.asarray(ty0, jnp.int32),
-            jnp.asarray(band_rows, jnp.int32),  # may be traced (rows_live)
-            jnp.int32(tiles_x),
-            jnp.int32(cfg.tile_size),
-        ]
+    sg = jax.lax.stop_gradient
+    pad = lambda x: jnp.pad(sg(x), (0, nh_pad - n))[None, :]
+    hx, hy = pad(layout.home_x), pad(layout.home_y)
+    wx0, wx1 = pad(layout.win[:, 0]), pad(layout.win[:, 1])
+    wy0, wy1 = pad(layout.win[:, 2]), pad(layout.win[:, 3])
+    c = jnp.arange(k_slots, dtype=jnp.int32)[:, None]  # [K, 1]
+    tx = hx + (c % span - h)
+    ty = hy + (c // span - h)
+    ty0 = jnp.asarray(ty0, jnp.int32)
+    ok = (
+        pad(p.valid)
+        & (tx >= wx0) & (tx < wx1)
+        & (ty >= wy0) & (ty < wy1)
+        & (ty >= ty0) & (ty < ty0 + band_rows)
     )
-    tile2d, pid2d = expand_pairs_pallas(
-        jax.lax.stop_gradient(cols), meta, nh_pad, span
+    qmin = rect_qmin(
+        pad(p.mean2d[:, 0]), pad(p.mean2d[:, 1]),
+        pad(p.conic[:, 0]), pad(p.conic[:, 1]), pad(p.conic[:, 2]),
+        tx, tx + 1, ty, ty + 1, float(cfg.tile_size),
     )
-    dbits = jnp.asarray(p.depth, jnp.float32).view(jnp.int32)
-    dbits = jnp.pad(dbits, (0, nh_pad - n))
+    ok &= qmin <= pad(cull_threshold(p.opacity, cfg.alpha_min))
+    tile2d = jnp.where(ok, (ty - ty0) * tiles_x + tx, INVALID_TILE)
+    pid2d = jnp.arange(nh_pad, dtype=jnp.int32)[None, :] * k_slots + c
+    dbits = pad(jnp.asarray(p.depth, jnp.float32).view(jnp.int32))[0]
     return tile2d, pid2d, dbits, nh_pad
 
 
@@ -224,9 +110,8 @@ class TileBins:
     int32 segment offsets into pid_sorted; tile_counts [T] int32;
     n_clamped, n_pairs: scalar diagnostics; ty0: first tile row of the
     band these bins cover (traced). Carrying pair ids instead of splat
-    ids lets the backward scatter gradients with *unique* indices
-    (scatter-set + K-axis reduce ≈ 0.9 ns/elem) instead of a scatter-add
-    (measured 100+ ns/row)."""
+    ids lets the backward route gradients through *unique* indices
+    (scatter-set + K-axis reduce) instead of a scatter-add."""
 
     pid_sorted: jax.Array
     tile_starts: jax.Array
@@ -299,9 +184,9 @@ def build_tile_bins(
         n_pairs = jnp.sum((tile2d != INVALID_TILE).astype(jnp.int32))
         if cfg.pair_repack:
             # balanced bucket-repack + 2-D row sorts + live compaction
-            # (render/repack.py): bit-identical per-tile pid sequences at
-            # ~1.1 vs ~4 ns/elem, and the compacted stream drops the
-            # ~60% culled-candidate tail before the pid windows / blend
+            # (render/repack.py): bit-identical per-tile pid sequences,
+            # and the compacted stream drops the culled-candidate tail
+            # before the blend
             from gsjax.render.repack import repack_pair_sort, resolve_repack_dims
 
             _w, _q, rr = resolve_repack_dims(nh_pad, k_slots, cfg)
@@ -391,50 +276,15 @@ def build_tile_bins(
     )
 
     # exact ellipse-tile cull: drop pairs whose max possible alpha anywhere
-    # in the tile's pixel rect is < alpha_min. The blend computes
-    # alpha = op·exp(-½ q(p)) with q the conic quadratic form, so the pair
-    # contributes nowhere iff min_{p∈rect} q(p) > 2·ln(op/alpha_min). The
-    # box-constrained minimum of the convex quadratic is closed-form: 0 if
-    # the mean is inside the rect, else the min over the 4 edges (on each
-    # edge the free coordinate's optimum is the clamped 1D minimizer).
-    # Exact w.r.t. the blend's own alpha test (modulo fexp's ~1e-4
-    # approximation error — absorbed by a small threshold slack), so the
-    # composited output is bit-identical while corner/edge tiles of
+    # in the tile's pixel rect is < alpha_min (common.rect_qmin), so the
+    # composited output is unchanged while corner/edge tiles of
     # anisotropic splats drop before the sort.
-    ts_f = float(cfg.tile_size)
-    ca = p.conic[:, 0:1]
-    cb = p.conic[:, 1:2]
-    cc = p.conic[:, 2:3]
-    thr = 2.0 * jnp.log(
-        jnp.maximum(p.opacity[:, None], cfg.alpha_min) / cfg.alpha_min
-    ) + 1e-3  # slack for the kernels' fexp approximation
-    # per-SPLAT reciprocals: VPU divides per PAIR cost ~14 ms/frame at
-    # the 1080p bench (tools/probe_binning.py); ca, cc > 0 for valid
-    # splats (conic of a PSD cov2d with the +0.3 low-pass)
-    neg_cb_rcc = -cb / cc
-    neg_cb_rca = -cb / ca
-    tx_lo = txs.astype(jnp.float32) * ts_f
-    ty_lo = tys.astype(jnp.float32) * ts_f
-    dxl = tx_lo - p.mean2d[:, 0:1]  # left edge offset
-    dxr = dxl + (ts_f - 1.0)  # right edge offset
-    dyl = ty_lo - p.mean2d[:, 1:2]
-    dyr = dyl + (ts_f - 1.0)
-    inside = (dxl <= 0) & (dxr >= 0) & (dyl <= 0) & (dyr >= 0)
-
-    def _edge_x(dx):  # min over the vertical edge at offset dx
-        dy = jnp.clip(neg_cb_rcc * dx, dyl, dyr)
-        return ca * dx * dx + 2.0 * cb * dx * dy + cc * dy * dy
-
-    def _edge_y(dy):
-        dx = jnp.clip(neg_cb_rca * dy, dxl, dxr)
-        return ca * dx * dx + 2.0 * cb * dx * dy + cc * dy * dy
-
-    qmin = jnp.minimum(
-        jnp.minimum(_edge_x(dxl), _edge_x(dxr)),
-        jnp.minimum(_edge_y(dyl), _edge_y(dyr)),
+    qmin = rect_qmin(
+        p.mean2d[:, 0:1], p.mean2d[:, 1:2],
+        p.conic[:, 0:1], p.conic[:, 1:2], p.conic[:, 2:3],
+        txs, txs + 1, tys, tys + 1, float(cfg.tile_size),
     )
-    qmin = jnp.where(inside, 0.0, qmin)
-    pair_ok &= qmin <= thr
+    pair_ok &= qmin <= cull_threshold(p.opacity[:, None], cfg.alpha_min)
 
     # FULL-resolution depth ordering: graphdeco sorts on the raw f32
     # depth bits (its 64-bit tile|depth key); a truncated key would

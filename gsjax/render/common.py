@@ -1,5 +1,5 @@
 """Shared pieces of the rasterization pipeline used by every backend
-(oracle / xla / pallas), so that all backends agree bit-closely.
+(oracle / xla / stream), so that all backends agree bit-closely.
 
 Depth ordering: the reference sorts on a 16-bit normalized depth key
 (/root/reference/wasm/wasm.cpp:16-39); graphdeco sorts on the raw f32
@@ -84,3 +84,43 @@ def gaussian_power(conic, dx, dy):
     against dx/dy pixel offsets."""
     a, b, c = conic[..., 0], conic[..., 1], conic[..., 2]
     return -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
+
+
+def cull_threshold(opacity, alpha_min):
+    """2·ln(op/alpha_min) + slack: a splat reaches alpha_min somewhere in
+    a pixel rect iff the conic quadratic's minimum over it is below
+    this (the slack absorbs exp's last-bit differences across
+    backends)."""
+    return 2.0 * jnp.log(jnp.maximum(opacity, alpha_min) / alpha_min) + 1e-3
+
+
+def rect_qmin(mx, my, ca, cb, cc, x0, x1, y0, y1, tile_size: float):
+    """Minimum of the conic quadratic a·dx² + 2b·dx·dy + c·dy² over the
+    pixel rect [x0·ts, x1·ts − 1] × [y0·ts, y1·ts − 1] (tile units,
+    exclusive max). Closed form: 0 if the mean is inside, else the min
+    over the 4 edges, where the free coordinate's optimum is the clamped
+    1-D minimizer. The exact ellipse cull of binning (one tile) and of
+    the fat-splat split (one block) both use it; all arguments
+    broadcast. ca, cc > 0 for valid splats (conic of a PSD cov2d with
+    the low-pass)."""
+    dxl = x0.astype(jnp.float32) * tile_size - mx
+    dxr = x1.astype(jnp.float32) * tile_size - 1.0 - mx
+    dyl = y0.astype(jnp.float32) * tile_size - my
+    dyr = y1.astype(jnp.float32) * tile_size - 1.0 - my
+    inside = (dxl <= 0) & (dxr >= 0) & (dyl <= 0) & (dyr >= 0)
+    neg_cb_rcc = -cb / cc
+    neg_cb_rca = -cb / ca
+
+    def edge_x(dx):
+        dy = jnp.clip(neg_cb_rcc * dx, dyl, dyr)
+        return ca * dx * dx + 2.0 * cb * dx * dy + cc * dy * dy
+
+    def edge_y(dy):
+        dx = jnp.clip(neg_cb_rca * dy, dxl, dxr)
+        return ca * dx * dx + 2.0 * cb * dx * dy + cc * dy * dy
+
+    qmin = jnp.minimum(
+        jnp.minimum(edge_x(dxl), edge_x(dxr)),
+        jnp.minimum(edge_y(dyl), edge_y(dyr)),
+    )
+    return jnp.where(inside, 0.0, qmin)

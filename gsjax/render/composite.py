@@ -4,7 +4,7 @@ over the binned, depth-ordered splat lists.
 This is the per-pixel hot loop of the reference — the fragment shader's
 gaussian falloff (/root/reference/src/renderers/webgl/shaders/
 frag.glsl.ts:13-21) plus the ONE_MINUS_DST_ALPHA blend state
-(WebGLRenderer.ts:141) — restructured for TPU as a chunked scan: each
+(WebGLRenderer.ts:141) — restructured as a vectorized chunked scan: each
 16×16 tile walks its splat list in chunks of `cfg.chunk`, with the
 termination rule folded into a virtual-cumprod carry (see
 render/oracle.py for why that is exactly graphdeco's sticky `done`).
@@ -16,8 +16,8 @@ Two carries per pixel:
            only), which weights the background and is the output
            transmittance map. They diverge only after termination.
 
-`build_padded_lists` + `blend_padded` also serve as the reference
-semantics for the Pallas backends (same inputs, same blend math).
+`build_padded_lists` + `blend_padded` also serve as the plain reference
+for the stream backend's Triton kernels (same inputs, same blend math).
 """
 
 from __future__ import annotations
@@ -29,7 +29,6 @@ from gsjax.core.camera import Camera
 from gsjax.core.config import RenderConfig
 from gsjax.render.binning import TileBins
 from gsjax.render.common import gaussian_power
-from gsjax.render.fastmath import fexp
 from gsjax.render.project import ProjectedSplats
 
 ATT_DIM = 9  # mean2d(2) + conic(3) + rgb(3) + opacity(1)
@@ -113,7 +112,7 @@ def blend_padded(att, counts, ty0, tiles_x: int, band_rows: int, cfg: RenderConf
         dx = px_t[:, None] - mean_x[None, :]  # [n_px, chunk]
         dy = py_t[:, None] - mean_y[None, :]
         power = gaussian_power(conic[None, :, :], dx, dy)
-        alpha = jnp.minimum(cfg.alpha_clamp, op[None, :] * fexp(power))
+        alpha = jnp.minimum(cfg.alpha_clamp, op[None, :] * jnp.exp(power))
         eligible = valid_c[None, :] & (alpha >= cfg.alpha_min) & (power <= 0.0)
         f = jnp.where(eligible, 1.0 - alpha, 1.0)
         Cc = C[:, None] * jnp.cumprod(f, axis=1)  # virtual inclusive T
@@ -183,32 +182,5 @@ def composite_tiles(
         "n_tile_overflow": jnp.sum(
             jnp.maximum(bins.tile_counts - cfg.tile_list_cap, 0)
         ),
-    }
-    return img, aux
-
-
-def composite_tiles_flat(
-    p: ProjectedSplats,
-    bins: TileBins,
-    cam: Camera,
-    cfg: RenderConfig,
-):
-    """Composite via the slot-stream Pallas kernels (no per-tile cap)."""
-    from gsjax.render.pallas_flat import blend_slots, chunked_pair_attrs
-
-    pid, starts, n_dropped = clipped_pair_stream(bins, cfg)
-    att_al, tile_of, cbase = chunked_pair_attrs(
-        att_table(p), pid, starts, cfg, cfg.tile_span * cfg.tile_span
-    )
-    img_t, T_t = blend_slots(
-        att_al, starts, cbase, tile_of, bins.ty0, bins.tiles_x, bins.band_rows, cfg
-    )
-    img, T_map = assemble_band(img_t, T_t, bins, cfg)
-    aux = {
-        "transmittance": T_map,
-        "n_clamped": bins.n_clamped,
-        "n_pairs": bins.n_pairs,
-        "n_tile_overflow": jnp.zeros((), jnp.int32),
-        "n_pair_overflow": n_dropped,
     }
     return img, aux

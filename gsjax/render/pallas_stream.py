@@ -1,1130 +1,248 @@
-"""Stream backend: gather-free Pallas tile blend over the home layout.
+"""Stream backend: the tile blend as one Triton kernel pair.
 
-The flat backend's frame cost is dominated by per-pair HBM row gathers
-(~7.4 ns/row, render/DESIGN.md): staging pair attributes costs one
-gather of P rows forward and an inverse-permutation gather of N·K rows
-backward. This backend eliminates both:
+The shape is graphdeco's CUDA rasterizer (the BASELINE correctness
+target): one program per 16×16 tile, whose 256 pixels are one vector;
+the tile's depth-sorted pairs are walked in order, and the walk stops
+once every pixel is done.
 
-  * splats are re-laid out once per frame in (home_tile, depth) order
-    (render/homesort.py), so the candidates of any tile are 9 contiguous
-    home segments of its 3×3 neighborhood;
-  * the kernel walks the image in 3-tile-row × (block+halo)-column
-    *bands*, DMA'd contiguously HBM→VMEM (no gather);
-  * per pair chunk, attributes are fetched from the band scratch with an
-    MXU one-hot matmul: onehot[p, l] = (pair_row[p] == window_row[l], on
-    the pair's band row) over per-band-row 128-lane windows — the TPU's
-    "gather" is a matmul;
-  * attribute f32 exactness through the bf16 MXU comes from a hi/lo
-    bf16 split (hi + lo carries a 16+ bit mantissa; selection rows have a
-    single 1 so the f32 accumulation is exact);
-  * the backward accumulates pair gradients into a band-shaped VMEM
-    scratch through the transposed one-hot and flushes each band with a
-    sequential read-modify-write into one HBM gradient buffer (the grid
-    is sequential, so no races; the block's runs partition the loaded
-    rows disjointly). Gradients return to the caller's splat order via
-    one inverse-permutation row gather — no HBM scatter anywhere.
+  * Attributes: the 9 home-row columns (mean2d, conic, rgb, opacity) are
+    gathered into pair order ONCE in XLA ([9, S] f32, `pair_attrs`), so
+    the kernels read each tile's segment contiguously. Pairs whose home
+    row is a repack pad (sid >= NH) or that lie past the stream's end
+    get zero opacity and contribute nothing.
+  * Forward: per pair, per pixel, the virtual transmittance C (product
+    over every ELIGIBLE splat) implements graphdeco's sticky termination
+    (`C·(1-α) >= eps`, render/oracle.py), while the actual transmittance
+    T_act multiplies only over INCLUDED splats and weights the
+    background. The tile leaves its chunk loop once max(C) < eps. Per
+    pixel the kernel records the index of its last included pair.
+  * Backward: the hand-derived rule, graphdeco-style. Walking back from
+    the tile's last included pair, T before pair i is recovered by
+    division from T_act (never from the virtual C, which can underflow
+    after termination), inclusion is `eligible ∧ i <= last[pixel]`, and
 
-Blend semantics (virtual-cumprod termination, graphdeco-equal) are
-identical to render/pallas_flat.py and the oracle; the forward/backward
-math is shared with that module.
+      dL/dα_i = v_i·T_i − (U_i + ct_T·T_act)/(1−α_i)
+      v_i = Σ_c ct_c·rgb_ic,   U_i = Σ_{j>i included} v_j·w_j
 
-Capacity knobs (RenderConfig.stream_*): band overflow is truncated and
-counted in aux — never silently.
+    chains to mean2d/conic/rgb/opacity. Each pair belongs to exactly one
+    tile, so its gradient is the tile's pixel sum, written to the pair's
+    own slot; `pairs_to_rows` then sums a home row's (at most 9) pair
+    slots through the inverse pair permutation — deterministic, no
+    scatter-add.
 """
 
 from __future__ import annotations
 
-import os
 from functools import partial
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
+from gsjax import device
 from gsjax.core.config import RenderConfig
-from gsjax.render.pallas_flat import (
-    ATT_COLS,
-    FWD_ROWS,
-    _chunk_quantities,
-    _hs_prod_sublanes,
-    _hs_suffix_sum_sublanes,
-    _pixel_grid,
-    _slot_tables,
-)
 
-# Profiling-only kernel ablations (tools/ablate_stream.py): GSJAX_ABLATE is
-# a comma list of {gather, hs, exp, dots, scatter}. Never set in production —
-# the image is garbage with any ablation on; timing the delta isolates one
-# stage's kernel cost.
-from gsjax.render.pallas_flat import _ABLATE  # noqa: E402
-
-WINW = 128  # window lanes per one-hot round
-TAB_ROWS = 32  # att table sublanes: 0:9 hi, 16:25 lo
-TAB_ROWS_EXACT = 48  # exact mode: 0:9 hi, 16:25 mid, 32:41 lo
+ATT_COLS = 9  # mx, my, conic a/b/c, r, g, b, opacity
+_NUM_WARPS = 8
 
 
-def _tab_rows(cfg):
-    return TAB_ROWS_EXACT if cfg.stream_exact_table else TAB_ROWS
+def pair_attrs(cols, pid, starts, k_slots: int):
+    """9 home-row columns [NH] → pair-ordered attributes [9, S]."""
+    nh = cols[0].shape[0]
+    s = pid.shape[0]
+    sid = pid // k_slots
+    live = (sid < nh) & (jnp.arange(s, dtype=jnp.int32) < starts[-1])
+    sidc = jnp.where(live, sid, 0)
+    g = [c[sidc] for c in cols]
+    g[8] = jnp.where(live, g[8], 0.0)
+    return jnp.stack(g)
 
 
-GRAD_ROWS = 16  # dcand scratch sublanes: 0:9 used
-# window base for classes with no pairs in the chunk: home rows are
-# >= -1, so ids = WIN_SENTINEL + lane can never match a sid and the
-# round's one-hot is provably all-zero (the round still runs — a wasted
-# MXU pass is far cheaper than a pl.when region, see DESIGN.md)
-WIN_SENTINEL = -(1 << 20)
-
-
-def _ceil(a, b):
-    return -(-a // b)
-
-
-# --------------------------------------------------------------------------
-# XLA-side tables
-# --------------------------------------------------------------------------
-
-
-def att_cols_table(cols, n_pad, exact: bool = False):
-    """9 f32 columns [N] → bf16 split table (rows 0:9 hi, 16:25 lo;
-    exact mode adds a third 8-bit-mantissa part at 32:41, making the
-    one-hot MXU selection reconstruct every f32 EXACTLY — the
-    (hi + mid) + lo identity holds for all f32). Built by stacking
-    column vectors — no transpose.
-
-    The split goes through lax.reduce_precision, NOT astype round-trips:
-    under --xla_allow_excess_precision (TPU default) XLA elides the
-    f32→bf16 rounding inside `c - f32(bf16(c))`, silently zeroing the lo
-    half — the table then carries only 8 mantissa bits and every
-    attribute the blend kernel reads is bf16-quantized (found in r3 via
-    the homesort repeat kernel, whose integer columns made it visible)."""
-    n = cols[0].shape[0]
-    hi32 = [jax.lax.reduce_precision(c, 8, 7) for c in cols]
-    hi = [h.astype(jnp.bfloat16) for h in hi32]
-    mid32 = [
-        jax.lax.reduce_precision(c - h, 8, 7) for c, h in zip(cols, hi32)
-    ]
-    z = jnp.zeros((7, n), jnp.bfloat16)
-    parts = [jnp.stack(hi), z, jnp.stack([m.astype(jnp.bfloat16) for m in mid32]), z]
-    if exact:
-        lo = [
-            jax.lax.reduce_precision(c - h - m, 8, 7).astype(jnp.bfloat16)
-            for c, h, m in zip(cols, hi32, mid32)
-        ]
-        parts += [jnp.stack(lo), z]
-    tab = jnp.concatenate(parts, axis=0)
-    return jnp.pad(tab, ((0, 0), (0, n_pad - n)))
-
-
-PACKW = 64  # pid-stream packing width (row gathers are priced per row)
-
-
-def _win_lanes(chunk):
-    """pid-window width: chunk + a WINW halo, padded to a PACKW multiple
-    so the packed-row gather covers it exactly."""
-    return _ceil(chunk + WINW, PACKW) * PACKW
-
-
-def packed_pid_windows(pid_sorted, starts, cfg: RenderConfig,
-                       sid_dead: int | None = None):
-    """Per-slot raw-pid windows, gathered as PACKW-wide rows.
-
-    Every formulation of the chunk-aligned window slice (vmap
-    dynamic_slice, flat index gather, lax.gather with slice sizes)
-    lowers to an elementwise gather (~9-14 ns per ELEMENT measured),
-    so instead the pid stream is viewed as [S/PACKW, PACKW] rows and each slot
-    gathers ceil((chunk+128)/PACKW) rows starting at a PACKW-floor of its
-    window — far fewer gather rows. The kernel rotates the raw window into
-    place (win % PACKW lanes) and decodes (row, class).
-
-    The per-band-row one-hot window bounds (lo, n_windows) are
-    precomputed HERE — 6 masked lane-reduces over the whole [NCB, lanes]
-    array at full VPU rate — and stashed in each row's slack lanes
-    [lanes-8, lanes-2) (a chunk occupies lanes [sh, sh+chunk), sh < PACKW,
-    so the last 8 lanes are never pair data, and the kernel's rotation
-    never moves them into the consumed [:chunk] region). In-kernel the 6
-    values are single scalar VMEM reads; deriving them there cost 6
-    cross-sublane masked min/max reduces (~0.3-0.5 µs EACH) per live
-    chunk — the largest per-chunk overhead after the fix.
-
-    `sid_dead`: home rows >= this are dead padding (the repack stream's
-    128-alignment pads carry sid = nh_pad); they are excluded from the
-    window bounds so no round ever points at unloaded band scratch — a
-    pad's stretched window would make the one-hot dot multiply 0 by
-    uninitialized VMEM (NaN-poisoning the tile) and the spill loop run
-    thousands of dead rounds.
-
-    Returns (pidwin [NCB, chunk+128] i32 raw+meta, tile_of [NCB], cbase)."""
-    chunk = cfg.chunk
-    u = cfg.stream_unroll
-    k_slots = cfg.tile_span * cfg.tile_span
-    S = pid_sorted.shape[0]
-    n_tiles = starts.shape[0] - 1
-    # per-tile slot counts pad to an unroll multiple (worst case u-1 pad
-    # slots per tile), and NCB itself to an unroll multiple
-    ncb = S // chunk + (n_tiles + 1) * u
-    ncb = _ceil(ncb, u) * u
-    tile_of, win, cbase, vcnt = _slot_tables(starts, chunk, ncb, u)
-
-    lanes = _win_lanes(chunk)
-    nrow = lanes // PACKW
-    n_pack = _ceil(S, PACKW) + nrow
-    pid_rows = jnp.pad(pid_sorted, (0, n_pack * PACKW - S)).reshape(-1, PACKW)
-    idx = jnp.clip(
-        (win // PACKW)[:, None] + jnp.arange(nrow, dtype=jnp.int32)[None, :],
-        0,
-        pid_rows.shape[0] - 1,
+def pairs_to_rows(dpair, pid, starts, nh: int, k_slots: int):
+    """Per-pair values [9, S] → per-home-row sums [9, NH]. Pair ids are
+    unique (sid·K + class), so the inverse permutation is a scatter-SET
+    of positions and the class sum a gather + reduce: deterministic."""
+    s = pid.shape[0]
+    live = (pid // k_slots < nh) & (jnp.arange(s, dtype=jnp.int32) < starts[-1])
+    inv = (
+        jnp.full((nh * k_slots,), s, jnp.int32)
+        .at[jnp.where(live, pid, nh * k_slots)]
+        .set(jnp.arange(s, dtype=jnp.int32), mode="drop")
     )
-    # barrier: the row gather feeds both the output and the 6 bound
-    # reduces below — without it XLA input-fuses (= recomputes) the
-    # gather into every reduce (measured 7 → 35 ms for this stage)
-    pidwin = jax.lax.optimization_barrier(pid_rows[idx].reshape(ncb, lanes))
-
-    # one-hot window bounds per (slot, CLASS), masked exactly like the
-    # kernel's validity rule: lane l holds chunk element srow = l - sh,
-    # real iff 0 <= srow < valid_count. A chunk's class-c pairs are a
-    # contiguous depth slice of ONE home segment, so per-class windows
-    # hit the occupied-block floor (~9.15/chunk vs 21.4 for the merged
-    # per-band-row windows — render/DESIGN.md); the kernel runs 9
-    # unconditional straight-line rounds (empty classes get a sentinel
-    # base that can never match a home row) plus one shared dynamic
-    # spill loop over the rare boundary-straddling extra windows.
-    sh = (win % PACKW)[:, None]
-    srow_l = jnp.arange(lanes, dtype=jnp.int32)[None, :] - sh
-    ok = (srow_l >= 0) & (srow_l < vcnt[:, None])
-    sid = pidwin // k_slots
-    cls_arr = pidwin - sid * k_slots
-    if sid_dead is not None:
-        ok = ok & (sid < sid_dead)
-    big = jnp.int32(2**30)
-    los, extras = [], []
-    for c in range(k_slots):
-        m = ok & (cls_arr == c)
-        rmin = jnp.min(jnp.where(m, sid, big), axis=1)
-        rmax = jnp.max(jnp.where(m, sid, -1), axis=1)
-        nonempty = rmax >= 0
-        lo = jnp.where(nonempty, (rmin // WINW) * WINW, WIN_SENTINEL)
-        los.append(lo)
-        extras.append(jnp.where(nonempty, (rmax - lo) // WINW, 0))
-    cums, tot = [], jnp.zeros_like(extras[0])
-    for c in range(k_slots):
-        tot = tot + extras[c]
-        cums.append(tot)
-    meta = jnp.stack(los + cums, axis=1).astype(jnp.int32)  # [NCB, 18]
-    pidwin = pidwin.at[:, lanes - 2 - 2 * k_slots : lanes - 2].set(meta)
-    return pidwin, tile_of, cbase
+    dpad = jnp.pad(dpair, ((0, 0), (0, 1)))
+    return dpad[:, inv].reshape(ATT_COLS, nh, k_slots).sum(-1)
 
 
-def band_blocks(
-    seg_starts,
-    ty0,
-    tiles_x: int,
-    tiles_y: int,
-    band_rows: int,
-    cfg: RenderConfig,
-    seg_row0=None,
-    rows_present: int | None = None,
-):
-    """Per (band row, column block) DMA descriptors.
-
-    `seg_starts` may be band-local (homesort.slice_band_rows): it then
-    covers `rows_present` tile rows starting at `seg_row0`, with row
-    offsets already rebased to the sliced attribute table.
-
-    Returns (blktab [NBLK·12] i32 — per run r∈{0,1,2} of each block:
-    (start row, length in rows, scratch base lane); empty runs get
-    start=2^30 so window→run threshold selection never picks them —
-    and n_overflow_rows, the home rows truncated by stream_band_cap)."""
-    blkw = cfg.stream_block_tiles
-    dmach = cfg.stream_dma_chunk
-    cap = cfg.stream_band_cap
-    nbx = _ceil(tiles_x, blkw)
-    ty0 = jnp.asarray(ty0, jnp.int32)
-    if seg_row0 is None:
-        seg_row0 = jnp.zeros((), jnp.int32)
-    if rows_present is None:
-        rows_present = tiles_y
-    seg_row0 = jnp.asarray(seg_row0, jnp.int32)
-
-    y = jnp.arange(band_rows, dtype=jnp.int32)[:, None, None]  # [Y,1,1]
-    bx = jnp.arange(nbx, dtype=jnp.int32)[None, :, None]  # [1,B,1]
-    r = jnp.arange(3, dtype=jnp.int32)[None, None, :]  # [1,1,3]
-    row_abs = ty0 + y - 1 + r
-    row_ok = (
-        (row_abs >= 0)
-        & (row_abs < tiles_y)
-        & (row_abs >= seg_row0)
-        & (row_abs < seg_row0 + rows_present)
-    )
-    c0 = jnp.clip(bx * blkw - 1, 0, tiles_x)
-    c1 = jnp.clip(bx * blkw + blkw + 1, 0, tiles_x)
-    row_c = jnp.clip(row_abs - seg_row0, 0, rows_present - 1)
-    a = row_c * tiles_x + c0
-    b = row_c * tiles_x + c1
-    s = jnp.where(row_ok, seg_starts[a], 0)  # exact run row ranges
-    e = jnp.where(row_ok, seg_starts[b], 0)
-    # DISJOINT dmach-granular partition with seamlessly packed scratch
-    # bases: start[r+1] = max(floor(s[r+1]), end[r]) and
-    # base[r+1] = base[r] + len[r], so every home row has exactly ONE
-    # scratch cell per block (the kernel's gradient scatter and the flush
-    # write-back rely on this), and boundary-straddling 128-row windows
-    # read seamlessly across run seams. Capacity truncation shortens far
-    # runs first and is counted.
-    cap_d = (cap // dmach) * dmach
-    st0 = (s[..., 0] // dmach) * dmach
-    en0 = jnp.maximum(st0, _ceil_j(e[..., 0], dmach) * dmach)
-    en0 = jnp.minimum(en0, st0 + cap_d)
-    st1 = jnp.maximum((s[..., 1] // dmach) * dmach, en0)
-    en1 = jnp.maximum(st1, _ceil_j(e[..., 1], dmach) * dmach)
-    en1 = jnp.minimum(en1, st1 + (cap_d - (en0 - st0)))
-    st2 = jnp.maximum((s[..., 2] // dmach) * dmach, en1)
-    en2 = jnp.maximum(st2, _ceil_j(e[..., 2], dmach) * dmach)
-    en2 = jnp.minimum(en2, st2 + (cap_d - (en0 - st0) - (en1 - st1)))
-    l0, l1, l2 = en0 - st0, en1 - st1, en2 - st2
-    n_overflow = jnp.sum(
-        jnp.maximum(e[..., 0] - en0, 0)
-        + jnp.maximum(e[..., 1] - en1, 0)
-        + jnp.maximum(e[..., 2] - en2, 0)
-    )
-    glo = jnp.stack([st0, st1, st2], axis=-1)
-    ln = jnp.stack([l0, l1, l2], axis=-1)
-    base = jnp.stack([jnp.zeros_like(l0), l0, l0 + l1], axis=-1)
-    glo = jnp.where(ln > 0, glo, jnp.int32(2**30))
-    blktab = jnp.stack([glo, ln, base, jnp.zeros_like(glo)], axis=-1)
-    return blktab.reshape(-1), n_overflow
+def _pixels(t, ty0, tiles_x: int, ts: int):
+    lane = jnp.arange(ts * ts, dtype=jnp.int32)
+    px = ((t % tiles_x) * ts + lane % ts).astype(jnp.float32)
+    py = ((t // tiles_x + ty0) * ts + lane // ts).astype(jnp.float32)
+    return px, py
 
 
-def _ceil_j(a, b):
-    return -(-a // b)
+def _splat(att_ref, i, px, py, alpha_clamp, alpha_min):
+    """Pair i's attributes and its per-pixel falloff quantities."""
+    a = [att_ref[c, i] for c in range(ATT_COLS)]
+    mx, my, ca, cb, cc, op = a[0], a[1], a[2], a[3], a[4], a[8]
+    dx = px - mx
+    dy = py - my
+    power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+    G = jnp.exp(power)
+    raw = op * G
+    alpha = jnp.minimum(alpha_clamp, raw)
+    eligible = (alpha >= alpha_min) & (power <= 0.0)
+    return a, dx, dy, G, raw, alpha, eligible
 
 
-# --------------------------------------------------------------------------
-# kernel helpers
-# --------------------------------------------------------------------------
-
-
-def _blk_of(tc, tiles_x, nbx, blkw):
-    return (tc // tiles_x) * nbx + (tc % tiles_x) // blkw
-
-
-def _run_info(blktab_ref, blk, r):
-    """(global start row, length in rows, scratch base lane) of run r.
-    Lengths are dmach multiples; bases are seamlessly packed
-    (base[r+1] = base[r] + len[r]); empty runs have start = 2^30."""
-    o = blk * 12 + r * 4
-    return blktab_ref[o], blktab_ref[o + 1], blktab_ref[o + 2]
-
-
-def _load_band(blktab_ref, blk, att_any, band_ref, sem, dmach):
-    """DMA the block's 3 runs into the band scratch (start-all, wait-all;
-    the disjoint dmach-granular run partition makes every copy's target
-    region unique). The first chunk of each run is straight-line under a
-    cheap predicate — Mosaic dynamic fori_loops cost ~1 µs each and runs
-    are usually 1-3 chunks."""
-    for phase in ("start", "wait"):
-        for r in range(3):
-            glo, ln, base = _run_info(blktab_ref, blk, r)
-
-            def body(i, _, glo=glo, base=base):
-                cp = pltpu.make_async_copy(
-                    att_any.at[
-                        :, pl.ds(pl.multiple_of(glo + i * dmach, dmach), dmach)
-                    ],
-                    band_ref.at[
-                        :, pl.ds(pl.multiple_of(base + i * dmach, dmach), dmach)
-                    ],
-                    sem,
-                )
-                if phase == "start":  # noqa: B023 — captured by closure on purpose
-                    cp.start()
-                else:
-                    cp.wait()
-                return 0
-
-            @pl.when(ln >= dmach)  # empty runs have a sentinel address
-            def _(body=body):
-                body(0, 0)
-
-            jax.lax.fori_loop(1, ln // dmach, body, 0)
-
-
-def _win_to_scratch(blktab_ref, blk, lo_c):
-    """Translate a global window base row to its band-scratch lane.
-    The runs partition the loaded rows disjointly with seamlessly packed
-    bases, so threshold selection is unambiguous, and a 128-row window
-    that straddles a run seam (its floor-128 base dips into the previous
-    run's range at a tile-row boundary) still reads the right rows —
-    the global→scratch mapping is continuous across touching runs.
-    Returns (scratch lane, total loaded scratch extent for the cap
-    guard)."""
-    g0, l0, b0 = _run_info(blktab_ref, blk, 0)
-    g1, l1, b1 = _run_info(blktab_ref, blk, 1)
-    g2, l2, b2 = _run_info(blktab_ref, blk, 2)
-    off = jnp.where(
-        lo_c >= g2,
-        lo_c - g2 + b2,
-        jnp.where(lo_c >= g1, lo_c - g1 + b1, lo_c - g0 + b0),
-    )
-    return off, b2 + l2
-
-
-def _decode_windows(rows_ref, u, win, count, k, chunk, k_slots, srow):
-    """Rotate the raw PACKW-aligned pid window (row u of the [1, U, lanes]
-    block) into place and decode (row, class). The per-CLASS one-hot
-    window bounds — a chunk's class-c pairs are one contiguous depth
-    slice of one home segment — were precomputed XLA-side by
-    packed_pid_windows and stashed in the row's slack lanes; here they
-    are 18 scalar VMEM reads (deriving them in-kernel cost masked
-    cross-sublane reduces at ~0.3-0.5 µs each per live chunk). Matching
-    masks on the class (a window's 128-row slack can dip into adjacent
-    segments, where a row id alone would double-count a pair).
-
-    Returns (sid [chunk, 1] home rows (-1 invalid), cls [chunk, 1] class
-    (-1 invalid), los, cums — python lists of k_slots scalars: per-class
-    window bases (WIN_SENTINEL when empty) and inclusive cumulative
-    spill-window counts)."""
-    lanes = _win_lanes(chunk)
-    sh = win % PACKW
-    raw = pltpu.roll(rows_ref[0, u : u + 1, :], lanes - sh, 1)  # [1, lanes]
-    rows = jnp.swapaxes(raw[:, :chunk], 0, 1)  # [chunk, 1]
-    valid = (k * chunk + srow) < count
-    sid = rows // k_slots
-    cls = jnp.where(valid, rows - sid * k_slots, -1)
-    sid = jnp.where(valid, sid, -1)
-    m0 = lanes - 2 - 2 * k_slots
-    los = [rows_ref[0, u, m0 + c] for c in range(k_slots)]
-    cums = [rows_ref[0, u, m0 + k_slots + c] for c in range(k_slots)]
-    return sid, cls, los, cums
-
-
-def _spill_params(i, los, cums):
-    """Map shared-spill-loop iteration i to its (window base, class,
-    window index) via scalar select chains over the per-class bounds:
-    spill i belongs to class c where cums[c-1] <= i < cums[c], and is
-    that class's (i - cums[c-1] + 1)-th window."""
-    lo_s, prev, ci = los[0], jnp.int32(0), jnp.int32(0)
-    for c in range(1, len(los)):
-        take = i >= cums[c - 1]
-        lo_s = jnp.where(take, los[c], lo_s)
-        prev = jnp.where(take, cums[c - 1], prev)
-        ci = jnp.where(take, jnp.int32(c), ci)
-    return lo_s, ci, i - prev + 1
-
-
-def _gather_att(
-    los, cums, blktab_ref, blk, band_ref, sid, cls, chunk, k_slots,
-    dmach, cap, origin, tab_rows, oh_ref=None,
-):
-    """One-hot MXU gather of this chunk's pair attributes over per-CLASS
-    windows: onehot[pair, lane] = (sid == window row) & (cls == c).
-    k_slots unconditional straight-line rounds (register-carried acc, no
-    pl.when, no VMEM RMW — the per-class fixed costs that sank the first
-    per-class attempt, DESIGN.md) + one shared dynamic fori over the
-    rare boundary-straddling spill windows (~0.15/chunk).
-
-    The table stores means RELATIVE to each splat's home-tile origin
-    (values in [0, tile_size): the bf16 hi/lo split then carries a
-    resolution-independent ~1e-4 px error instead of ~width·2^-17); the
-    absolute mean is reconstructed by adding each pair's class origin —
-    a pure per-pair function of `cls`, no routing through the one-hot.
-    `origin` = (tile_origin_x, tile_origin_y, tile_size). Returns
-    [chunk, 9] f32 attributes (dead/out-of-window/cap-truncated rows get
-    zero opacity and are never eligible).
-
-    `oh_ref` ([k_slots·chunk, WINW] bf16 VMEM): when given, the static
-    rounds STORE their one-hot matrices so the backward's transposed
-    scatter can reuse them instead of rebuilding the identical
-    compare/select chains (cfg.stream_oh_cache)."""
-    tox, toy, ts = origin
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, WINW), 1)
-    acc = jnp.zeros((chunk, tab_rows), jnp.float32)
-
-    def round_(acc, lo_s, w_i, m_cls, store_c=None):
-        ids = lo_s + w_i * WINW + lane  # global home rows
-        off, end = _win_to_scratch(blktab_ref, blk, lo_s)
-        ok = off + w_i * WINW + WINW <= end  # cap truncation guard
-        oh = jnp.where(
-            jnp.logical_and(m_cls, sid == ids),
-            jnp.where(ok, 1.0, 0.0),
-            0.0,
-        ).astype(jnp.bfloat16)  # [chunk, WINW]
-        if store_c is not None and oh_ref is not None:
-            oh_ref[pl.ds(store_c * chunk, chunk), :] = oh
-        start = jnp.clip(off + w_i * WINW, 0, cap - WINW)
-        w = band_ref[:, pl.ds(pl.multiple_of(start, WINW), WINW)]
-        return acc + jax.lax.dot_general(
-            oh,
-            w,  # [tab_rows, WINW]
-            dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-
-    for c in range(k_slots):
-        acc = round_(acc, los[c], 0, cls == c, store_c=c)
-
-    def spill(i, acc):
-        lo_s, ci, w_i = _spill_params(i, los, cums)
-        return round_(acc, lo_s, w_i, cls == ci)
-
-    acc = jax.lax.fori_loop(0, cums[-1], spill, acc)
-    att = acc[:, 0:ATT_COLS] + acc[:, 16 : 16 + ATT_COLS]
-    if tab_rows >= TAB_ROWS_EXACT:
-        # exact mode: third split part recovers f32 exactly; means are
-        # stored ABSOLUTE (no origin reconstruction round-off)
-        return att + acc[:, 32 : 32 + ATT_COLS]
-    # per-pair class origin (garbage for invalid pairs — their zero
-    # opacity keeps them ineligible regardless)
-    addx = (tox + (1 - cls % 3) * ts).astype(jnp.float32)
-    addy = (toy + (1 - cls // 3) * ts).astype(jnp.float32)
-    return jnp.concatenate(
-        [att[:, 0:1] + addx, att[:, 1:2] + addy, att[:, 2:]], axis=1
-    )
-
-
-def _scatter_grad(
-    los, cums, blktab_ref, blk, dcand_ref, sid, cls, datt, chunk, k_slots,
-    dmach, cap, oh_ref=None,
-):
-    """Transposed one-hot MXU scatter over per-CLASS windows (same round
-    structure as _gather_att): accumulate datt [chunk, 9] into the
-    band-shaped gradient scratch (hi/lo bf16 split keeps ~16 mantissa
-    bits through the MXU). Empty-class rounds RMW an all-zero update
-    into slice 0 — harmless; the rounds are sequential so overlapping
-    slices accumulate correctly. With `oh_ref`, the static rounds READ
-    the one-hot matrices _gather_att stored this sub-slot instead of
-    rebuilding them (the r4 ablation put the scatter rounds at ~40% of
-    the backward kernel; the one-hot build is their VPU half)."""
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, WINW), 1)
-    dpad = jnp.concatenate(
-        [datt, jnp.zeros((chunk, GRAD_ROWS - ATT_COLS), jnp.float32)], axis=1
-    )
-    dh = dpad.astype(jnp.bfloat16)
-    dl = (dpad - dh.astype(jnp.float32)).astype(jnp.bfloat16)
-    # hi and lo stacked column-wise: ONE [chunk, 2·GRAD_ROWS]×[chunk, WINW]
-    # MXU call per window instead of two (the MXU pads the output sublane
-    # dim regardless, so the halves ride along free), summed after
-    dhl = jnp.concatenate([dh, dl], axis=1)  # [chunk, 32] bf16
-
-    def round_(lo_s, w_i, m_cls, load_c=None):
-        off, end = _win_to_scratch(blktab_ref, blk, lo_s)
-        if load_c is not None and oh_ref is not None:
-            oh = oh_ref[pl.ds(load_c * chunk, chunk), :]
-        else:
-            ids = lo_s + w_i * WINW + lane  # global home rows
-            ok = off + w_i * WINW + WINW <= end
-            oh = jnp.where(
-                jnp.logical_and(m_cls, sid == ids),
-                jnp.where(ok, 1.0, 0.0),
-                0.0,
-            ).astype(jnp.bfloat16)  # [chunk, WINW]
-        u2 = jax.lax.dot_general(
-            dhl,
-            oh,
-            dimension_numbers=(((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )  # [2·GRAD_ROWS, WINW]
-        upd = u2[0:GRAD_ROWS] + u2[GRAD_ROWS:]
-        start = jnp.clip(off + w_i * WINW, 0, cap - WINW)
-        sl = pl.ds(pl.multiple_of(start, WINW), WINW)
-        dcand_ref[:, sl] = dcand_ref[:, sl] + upd
-
-    for c in range(k_slots):
-        round_(los[c], 0, cls == c, load_c=c)
-
-    def spill(i, _):
-        lo_s, ci, w_i = _spill_params(i, los, cums)
-        round_(lo_s, w_i, cls == ci)
-        return 0
-
-    jax.lax.fori_loop(0, cums[-1], spill, 0)
-
-
-def _fake_att(sid, origin, chunk):
-    """Ablation stand-in for _gather_att: plausible magnitudes, data-
-    dependent on the row ids so nothing constant-folds (profiling
-    only)."""
-    tox, toy, ts = origin
-    noise = (sid % 97).astype(jnp.float32) * 1e-3  # [chunk, 1]
-    cx = jnp.float32(tox) + 0.5 * ts
-    cy = jnp.float32(toy) + 0.5 * ts
-    return jnp.concatenate(
-        [cx + noise, cy + noise, 0.05 + noise, noise * 0.1, 0.05 + noise,
-         0.5 + noise, 0.5 + noise, 0.5 + noise, 0.4 + noise],
-        axis=1,
-    )
-
-
-# --------------------------------------------------------------------------
-# forward kernel
-# --------------------------------------------------------------------------
-
-
-def _stream_fwd_kernel(
-    starts_ref,  # [T+2] i32 scalar prefetch
-    cbase_ref,  # [T+1]
-    tof_ref,  # [NCB/u] tile of each slot GROUP
-    meta_ref,  # [4]: ty0, tiles_x, nbx, blkw
-    blktab_ref,  # [NBLK·12]
-    rows_ref,  # [1, U, chunk+WINW] i32 raw pid window block (group js)
-    att_any,  # [32, NP] bf16, HBM
-    out_ref,  # [1, FWD_ROWS, n_px] block (tile)
-    band_ref,  # VMEM scratch [32, cap] bf16
-    sem,
-    cur_ref,  # SMEM [2] i32
-    *,
-    ts: int,
-    chunk: int,
-    k_slots: int,
-    n_tiles: int,
-    dmach: int,
-    cap: int,
-    alpha_clamp: float,
-    alpha_min: float,
-    eps_T: float,
-    unroll: int,
-    tab_rows: int,
-):
+def _fwd_kernel(meta_ref, starts_ref, att_ref, out_ref, last_ref, *,
+                ts, tiles_x, chunk, n_pairs, alpha_clamp, alpha_min, eps_T):
+    t = pl.program_id(0)
+    s0 = starts_ref[t]
+    s1 = starts_ref[t + 1]
+    px, py = _pixels(t, meta_ref[0], tiles_x, ts)
     n_px = ts * ts
-    js = pl.program_id(0)
-    # the slot group [js·U, (js+1)·U) never spans tiles (_slot_tables pads
-    # per-tile slot counts to unroll multiples), so tile-level state is
-    # computed once per grid step and the per-step overhead amortizes
-    t = tof_ref[js]  # group-level: [NCB/u] (per-slot hit the 1MB SMEM cap at 5M splats)
-    dead = t == n_tiles
-    tc = jnp.minimum(t, n_tiles - 1)
-    count = starts_ref[tc + 1] - starts_ref[tc]
-    tiles_x = meta_ref[1]
-    px, py = _pixel_grid(tc, meta_ref[0], tiles_x, ts, n_px)
-    srow = jax.lax.broadcasted_iota(jnp.int32, (chunk, 1), 0)
-    origin = ((tc % tiles_x) * ts, (tc // tiles_x + meta_ref[0]) * ts, ts)
-    blk = _blk_of(tc, tiles_x, meta_ref[2], meta_ref[3])
+    one = jnp.ones((n_px,), jnp.float32)
+    zero = jnp.zeros((n_px,), jnp.float32)
 
-    @pl.when(js == 0)
-    def _():
-        cur_ref[0] = -1
-
-    k0 = js * unroll - cbase_ref[tc]
-
-    @pl.when(k0 == 0)
-    def _():
-        out_ref[0] = jnp.concatenate(
-            [
-                jnp.zeros((3, n_px), jnp.float32),
-                jnp.ones((2, n_px), jnp.float32),
-                jnp.zeros((FWD_ROWS - 5, n_px), jnp.float32),
-            ],
-            axis=0,
+    def pair(j, st, base):
+        C, T, r, g, b, last = st
+        i = base + j
+        ic = jnp.minimum(i, n_pairs - 1)
+        a, _dx, _dy, _G, _raw, alpha, eligible = _splat(
+            att_ref, ic, px, py, alpha_clamp, alpha_min
         )
-        cur_ref[1] = 1  # tile alive (max virtual transmittance ≥ eps)
-
-    for u in range(unroll):
-        k = k0 + u
-        # liveness is an SMEM scalar maintained by the live body (a
-        # per-sub-slot max-reduce over C would dominate skipped slots)
-        live = jnp.logical_and(
-            jnp.logical_not(dead),
-            jnp.logical_and(cur_ref[1] == 1, k * chunk < count),
+        eligible = eligible & (i < s1)
+        Cn = C * jnp.where(eligible, 1.0 - alpha, 1.0)
+        include = eligible & (Cn >= eps_T)
+        w = jnp.where(include, C * alpha, 0.0)
+        return (
+            Cn,
+            jnp.where(include, Cn, T),
+            r + w * a[5],
+            g + w * a[6],
+            b + w * a[7],
+            jnp.where(include, i, last),
         )
 
-        @pl.when(jnp.logical_and(live, blk != cur_ref[0]))
-        def _():
-            _load_band(blktab_ref, blk, att_any, band_ref, sem, dmach)
-            cur_ref[0] = blk
+    def cond(carry):
+        k, st = carry
+        return (s0 + k * chunk < s1) & (jnp.max(st[0]) >= eps_T)
 
-        @pl.when(live)
-        def _(k=k, u=u):
-            C = out_ref[0, 4:5, :]
-            win = starts_ref[tc] + k * chunk
-            sid, cls, los, cums = _decode_windows(
-                rows_ref, u, win, count, k, chunk, k_slots, srow
-            )
-            if "gather" in _ABLATE:
-                att = _fake_att(sid, origin, chunk)
-            else:
-                att = _gather_att(
-                    los, cums, blktab_ref, blk, band_ref, sid, cls,
-                    chunk, k_slots, dmach, cap, origin, tab_rows,
-                )
+    def body(carry):
+        k, st = carry
+        base = s0 + k * chunk
+        st = jax.lax.fori_loop(0, chunk, partial(pair, base=base), st)
+        return k + 1, st
 
-            alpha, eligible, f, _G, _dx, _dy, _uc = _chunk_quantities(
-                att, px, py, srow, k * chunk, count, alpha_clamp, alpha_min
-            )
-            if "hs" in _ABLATE:
-                incl = f
-            else:
-                incl = _hs_prod_sublanes(f, srow, chunk)
-            excl = jnp.where(srow >= 1, pltpu.roll(incl, 1, 0), 1.0)
-            Cc = C * incl
-            include = jnp.logical_and(eligible, Cc >= eps_T)
-            w = jnp.where(include, C * excl * alpha, 0.0)
-
-            img = out_ref[0, 0:3, :] + jax.lax.dot_general(
-                att[:, 5:8],
-                w,
-                dimension_numbers=(((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST,
-            )
-            t_min = jnp.min(jnp.where(include, Cc, 2.0), axis=0, keepdims=True)
-            T_act = out_ref[0, 3:4, :]
-            T_act = jnp.where(t_min > 1.5, T_act, t_min)
-            n_done = jnp.full((1, n_px), k + 1, jnp.float32)
-            pad = jnp.zeros((FWD_ROWS - 6, n_px), jnp.float32)
-            out_ref[0] = jnp.concatenate(
-                [img, T_act, Cc[-1:, :], n_done, pad], axis=0
-            )
-            cur_ref[1] = (jnp.max(Cc[-1:, :]) >= eps_T).astype(jnp.int32)
+    init = (one, one, zero, zero, zero, jnp.full((n_px,), s0 - 1, jnp.int32))
+    _, (C, T, r, g, b, last) = jax.lax.while_loop(
+        cond, body, (jnp.int32(0), init)
+    )
+    out_ref[t, 0, :] = r
+    out_ref[t, 1, :] = g
+    out_ref[t, 2, :] = b
+    out_ref[t, 3, :] = T
+    last_ref[t, :] = last
 
 
-# --------------------------------------------------------------------------
-# backward kernel
-# --------------------------------------------------------------------------
+def _bwd_kernel(meta_ref, starts_ref, att_ref, tact_ref, last_ref, ct_ref,
+                dz_ref, d_ref, *, ts, tiles_x, alpha_clamp, alpha_min):
+    del dz_ref  # zero-initialised storage aliased to d_ref
+    t = pl.program_id(0)
+    s0 = starts_ref[t]
+    px, py = _pixels(t, meta_ref[0], tiles_x, ts)
+    T_act = tact_ref[t, :]
+    last = last_ref[t, :]
+    ctr, ctg, ctb = ct_ref[t, 0, :], ct_ref[t, 1, :], ct_ref[t, 2, :]
+    ctT_Tact = ct_ref[t, 3, :] * T_act
+    lmax = jnp.max(last)
 
-
-def _stream_bwd_kernel(
-    starts_ref,
-    cbase_ref,
-    tof_ref,  # [NCB/u] tile per group (forward order; groups process in reverse)
-    meta_ref,
-    blktab_ref,
-    rows_ref,  # [1, U, chunk+WINW] raw pid window block of group ngrp-1-js
-    att_any,  # [32, NP] bf16 HBM
-    dzero_any,  # [GRAD_ROWS, NP] f32 HBM (aliased to dgrad_any)
-    ct_ref,  # [1, 4, n_px] block (tile)
-    fwd_ref,  # [1, FWD_ROWS, n_px] block (tile)
-    dgrad_any,  # out [GRAD_ROWS, NP] f32 HBM (RMW-accumulated)
-    state_ref,  # out [1, 8, n_px] block (tile)
-    band_ref,  # VMEM [32, cap] bf16
-    dcand_ref,  # VMEM [GRAD_ROWS, cap] f32
-    stage_ref,  # VMEM [GRAD_ROWS, cap] f32 (RMW read staging)
-    sem,
-    gsem,
-    cur_ref,  # SMEM [2] i32
-    *maybe_ohc,  # optional VMEM [k_slots·chunk, WINW] bf16 one-hot cache
-    ts: int,
-    chunk: int,
-    k_slots: int,
-    n_tiles: int,
-    nbx: int,
-    dmach: int,
-    cap: int,
-    alpha_clamp: float,
-    alpha_min: float,
-    eps_T: float,
-    unroll: int,
-    tab_rows: int,
-):
-    del dzero_any  # aliased storage; all access goes through dgrad_any
-    ohc_ref = maybe_ohc[0] if maybe_ohc else None
-    n_px = ts * ts
-    js = pl.program_id(0)
-    g = pl.num_programs(0) - 1 - js  # slot group, descending
-    t = tof_ref[g]  # group-level: [NCB/u]
-    dead = t == n_tiles
-    tc = jnp.minimum(t, n_tiles - 1)
-    k0 = g * unroll - cbase_ref[tc]
-    nslots_t = cbase_ref[tc + 1] - cbase_ref[tc]
-    count = starts_ref[tc + 1] - starts_ref[tc]
-    tiles_x = meta_ref[1]
-    px, py = _pixel_grid(tc, meta_ref[0], tiles_x, ts, n_px)
-    srow = jax.lax.broadcasted_iota(jnp.int32, (chunk, 1), 0)
-    origin = ((tc % tiles_x) * ts, (tc // tiles_x + meta_ref[0]) * ts, ts)
-
-    @pl.when(js == 0)
-    def _():
-        cur_ref[0] = -1
-
-    def flush(blkprev):
-        # Read-modify-write accumulation into the single HBM gradient
-        # buffer. The grid is sequential so cross-block RMW is race-free,
-        # and the block's runs partition the loaded rows disjointly
-        # (band_blocks), so the read / write copies never touch the same
-        # HBM row twice within one flush.
-        for phase in ("start", "wait"):
-            for r in range(3):
-                glo, ln, base = _run_info(blktab_ref, blkprev, r)
-
-                def body(i, _, glo=glo, base=base):
-                    cp = pltpu.make_async_copy(
-                        dgrad_any.at[
-                            :,
-                            pl.ds(pl.multiple_of(glo + i * dmach, dmach), dmach),
-                        ],
-                        stage_ref.at[
-                            :,
-                            pl.ds(pl.multiple_of(base + i * dmach, dmach), dmach),
-                        ],
-                        gsem,
-                    )
-                    if phase == "start":
-                        cp.start()
-                    else:
-                        cp.wait()
-                    return 0
-
-                @pl.when(ln >= dmach)
-                def _(body=body):
-                    body(0, 0)
-
-                jax.lax.fori_loop(1, ln // dmach, body, 0)
-        # extent-bounded accumulate: only the loaded runs' lanes hold
-        # data (scatter's cap guard zeroes everything past the extent),
-        # so a full [GRAD_ROWS, cap] add would waste ~10x the VMEM
-        # traffic at typical extents
-        for r in range(3):
-            _glo, ln, base = _run_info(blktab_ref, blkprev, r)
-
-            def add_body(i, _, base=base):
-                sl = pl.ds(pl.multiple_of(base + i * dmach, dmach), dmach)
-                dcand_ref[:, sl] = dcand_ref[:, sl] + stage_ref[:, sl]
-                return 0
-
-            @pl.when(ln >= dmach)
-            def _(add_body=add_body):
-                add_body(0, 0)
-
-            jax.lax.fori_loop(1, ln // dmach, add_body, 0)
-        for phase in ("start", "wait"):
-            for r in range(3):
-                glo, ln, base = _run_info(blktab_ref, blkprev, r)
-
-                def body(i, _, glo=glo, base=base):
-                    cp = pltpu.make_async_copy(
-                        dcand_ref.at[
-                            :,
-                            pl.ds(pl.multiple_of(base + i * dmach, dmach), dmach),
-                        ],
-                        dgrad_any.at[
-                            :,
-                            pl.ds(pl.multiple_of(glo + i * dmach, dmach), dmach),
-                        ],
-                        gsem,
-                    )
-                    if phase == "start":
-                        cp.start()
-                    else:
-                        cp.wait()
-                    return 0
-
-                @pl.when(ln >= dmach)
-                def _(body=body):
-                    body(0, 0)
-
-                jax.lax.fori_loop(1, ln // dmach, body, 0)
-
-    blk = _blk_of(tc, tiles_x, nbx, meta_ref[3])
-
-    @pl.when(jnp.logical_and(jnp.logical_not(dead), blk != cur_ref[0]))
-    def _():
-        @pl.when(cur_ref[0] >= 0)
-        def _():
-            flush(cur_ref[0])
-
-        # zero only the new block's loaded extent: flush reads back
-        # exactly these lanes (stale values elsewhere are never read;
-        # scatter's cap-clipped writes beyond the extent add zeros)
-        for r in range(3):
-            _glo, ln, base = _run_info(blktab_ref, blk, r)
-
-            def zero_body(i, _, base=base):
-                sl = pl.ds(pl.multiple_of(base + i * dmach, dmach), dmach)
-                dcand_ref[:, sl] = jnp.zeros((GRAD_ROWS, dmach), jnp.float32)
-                return 0
-
-            @pl.when(ln >= dmach)
-            def _(zero_body=zero_body):
-                zero_body(0, 0)
-
-            jax.lax.fori_loop(1, ln // dmach, zero_body, 0)
-        _load_band(blktab_ref, blk, att_any, band_ref, sem, dmach)
-        cur_ref[0] = blk
-
-    @pl.when(jnp.logical_and(k0 == nslots_t - unroll, jnp.logical_not(dead)))
-    def _():
-        state_ref[0] = jnp.concatenate(
-            [fwd_ref[0, 4:5, :], jnp.zeros((7, n_px), jnp.float32)], axis=0
+    def pair(j, st):
+        T, U = st
+        i = lmax - j
+        a, dx, dy, G, raw, alpha, eligible = _splat(
+            att_ref, i, px, py, alpha_clamp, alpha_min
         )
+        include = eligible & (i <= last)
+        f = 1.0 - alpha
+        Tb = jnp.where(include, T / f, T)
+        w = jnp.where(include, Tb * alpha, 0.0)
+        v = a[5] * ctr + a[6] * ctg + a[7] * ctb
+        dalpha = jnp.where(include, v * Tb - (U + ctT_Tact) / f, 0.0)
+        unclamped = raw < alpha_clamp
+        dpow = jnp.where(unclamped, dalpha * alpha, 0.0)
+        ca, cb, cc = a[2], a[3], a[4]
+        grads = (
+            jnp.sum(dpow * (ca * dx + cb * dy)),
+            jnp.sum(dpow * (cb * dx + cc * dy)),
+            jnp.sum(dpow * (-0.5 * dx * dx)),
+            jnp.sum(dpow * (-dx * dy)),
+            jnp.sum(dpow * (-0.5 * dy * dy)),
+            jnp.sum(w * ctr),
+            jnp.sum(w * ctg),
+            jnp.sum(w * ctb),
+            jnp.sum(jnp.where(unclamped, dalpha * G, 0.0)),
+        )
+        for c in range(ATT_COLS):
+            d_ref[c, i] = grads[c]
+        return Tb, U + v * w
 
-    n_done = fwd_ref[0, 5, 0].astype(jnp.int32)
-
-    for uu in range(unroll):
-        u = unroll - 1 - uu  # sub-slots replay back-to-front
-        k = k0 + u
-        live = jnp.logical_and(jnp.logical_not(dead), k < n_done)
-
-        @pl.when(live)
-        def _(k=k, u=u):
-            win = starts_ref[tc] + k * chunk
-            sid, cls, los, cums = _decode_windows(
-                rows_ref, u, win, count, k, chunk, k_slots, srow
-            )
-            if "gather" in _ABLATE:
-                att = _fake_att(sid, origin, chunk)
-            else:
-                att = _gather_att(
-                    los, cums, blktab_ref, blk, band_ref, sid, cls,
-                    chunk, k_slots, dmach, cap, origin, tab_rows,
-                    oh_ref=ohc_ref,
-                )
-
-            ct_img = ct_ref[0, 0:3, :]
-            ct_T = ct_ref[0, 3:4, :]
-            T_act = fwd_ref[0, 3:4, :]
-            C_exit = state_ref[0, 0:1, :]
-            S_carry = state_ref[0, 1:2, :]
-
-            alpha, eligible, f, G, dx, dy, unclamped = _chunk_quantities(
-                att, px, py, srow, k * chunk, count, alpha_clamp, alpha_min
-            )
-            if "hs" in _ABLATE:
-                incl = f
-                excl = f
-            else:
-                incl = _hs_prod_sublanes(f, srow, chunk)
-                excl = jnp.where(srow >= 1, pltpu.roll(incl, 1, 0), 1.0)
-            C_entry = C_exit / jnp.maximum(incl[-1:, :], 1e-30)
-            Cc = C_entry * incl
-            include = jnp.logical_and(eligible, Cc >= eps_T)
-            T_i = C_entry * excl
-            w = jnp.where(include, T_i * alpha, 0.0)
-
-            v = jax.lax.dot_general(
-                att[:, 5:8],
-                ct_img,
-                dimension_numbers=(((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST,
-            )
-            vw = v * w
-            if "hs" in _ABLATE:
-                sfx = vw
-            else:
-                sfx = _hs_suffix_sum_sublanes(vw, srow, chunk)
-            U = S_carry + (sfx - vw)
-
-            inv_f = 1.0 / f
-            ctT_Tact = ct_T * T_act
-            dalpha = jnp.where(include, v * T_i - (U + ctT_Tact) * inv_f, 0.0)
-
-            dpow = jnp.where(unclamped, dalpha * alpha, 0.0)
-            ca, cb, cc = att[:, 2:3], att[:, 3:4], att[:, 4:5]
-            dmx = jnp.sum(dpow * (ca * dx + cb * dy), axis=1, keepdims=True)
-            dmy = jnp.sum(dpow * (cb * dx + cc * dy), axis=1, keepdims=True)
-            dca = jnp.sum(dpow * (-0.5 * dx * dx), axis=1, keepdims=True)
-            dcb = jnp.sum(dpow * (-dx * dy), axis=1, keepdims=True)
-            dcc = jnp.sum(dpow * (-0.5 * dy * dy), axis=1, keepdims=True)
-            dop = jnp.sum(
-                jnp.where(unclamped, dalpha * G, 0.0), axis=1, keepdims=True
-            )
-            drgb = jax.lax.dot_general(
-                w,
-                ct_img,
-                dimension_numbers=(((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST,
-            )
-            datt = jnp.concatenate([dmx, dmy, dca, dcb, dcc, drgb, dop], axis=1)
-
-            if "scatter" not in _ABLATE:
-                _scatter_grad(
-                    los, cums, blktab_ref, blk, dcand_ref, sid, cls, datt,
-                    chunk, k_slots, dmach, cap, oh_ref=ohc_ref,
-                )
-
-            state_ref[0] = jnp.concatenate(
-                [C_entry, S_carry + sfx[0:1, :],
-                 jnp.zeros((6, n_px), jnp.float32)],
-                axis=0,
-            )
-
-    @pl.when(jnp.logical_and(js == pl.num_programs(0) - 1, cur_ref[0] >= 0))
-    def _():
-        flush(cur_ref[0])
-
-
-# --------------------------------------------------------------------------
-# host-side wrappers
-# --------------------------------------------------------------------------
-
-
-def _meta(ty0, tiles_x, nbx, blkw):
-    return jnp.stack(
-        [
-            jnp.asarray(ty0, jnp.int32),
-            jnp.asarray(tiles_x, jnp.int32),
-            jnp.asarray(nbx, jnp.int32),
-            jnp.asarray(blkw, jnp.int32),
-        ]
+    jax.lax.fori_loop(
+        0, jnp.maximum(lmax - s0 + 1, 0), pair,
+        (T_act, jnp.zeros_like(T_act)),
     )
 
 
-def _fwd_call(att_tab, pidwin, blktab, starts, cbase, tile_of, ty0,
-              tiles_x, band_rows, cfg: RenderConfig):
+def _fwd_call(att, starts, ty0, tiles_x: int, band_rows: int,
+              cfg: RenderConfig):
     ts = cfg.tile_size
     n_px = ts * ts
     n_tiles = tiles_x * band_rows
-    ncb = pidwin.shape[0]
-    k_slots = cfg.tile_span * cfg.tile_span
-    nbx = _ceil(tiles_x, cfg.stream_block_tiles)
-    starts_pad = jnp.concatenate([starts, starts[-1:]])
-    meta = _meta(ty0, tiles_x, nbx, cfg.stream_block_tiles)
-    u = cfg.stream_unroll
     kernel = partial(
-        _stream_fwd_kernel,
-        ts=ts,
-        chunk=cfg.chunk,
-        k_slots=k_slots,
-        n_tiles=n_tiles,
-        dmach=cfg.stream_dma_chunk,
-        cap=cfg.stream_band_cap,
-        alpha_clamp=cfg.alpha_clamp,
-        alpha_min=cfg.alpha_min,
-        eps_T=cfg.transmittance_eps,
-        unroll=u,
-        tab_rows=_tab_rows(cfg),
+        _fwd_kernel, ts=ts, tiles_x=tiles_x, chunk=cfg.chunk,
+        n_pairs=att.shape[1], alpha_clamp=cfg.alpha_clamp,
+        alpha_min=cfg.alpha_min, eps_T=cfg.transmittance_eps,
     )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=5,
-        grid=(ncb // u,),
-        in_specs=[
-            # one grid step = one slot GROUP (u same-tile slots). Dead
-            # groups (invalid-pair tail + sentinel padding) all map to
-            # block 0: Pallas skips the input DMA when the block index
-            # repeats, so a dead RUN costs one fetch instead of one per
-            # step (~40% of slots are the dead tail alone)
-            pl.BlockSpec(
-                (1, u, _win_lanes(cfg.chunk)),
-                lambda j, st, cb, tof, m, bt: (
-                    jnp.where(tof[j] == n_tiles, 0, j),
-                    0,
-                    0,
-                ),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=pl.BlockSpec(
-            (1, FWD_ROWS, n_px),
-            lambda j, st, cb, tof, m, bt: (tof[j], 0, 0),
-            memory_space=pltpu.VMEM,
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((_tab_rows(cfg), cfg.stream_band_cap), jnp.bfloat16),
-            pltpu.SemaphoreType.DMA,
-            pltpu.SMEM((2,), jnp.int32),
-        ],
-    )
-    out = pl.pallas_call(
+    return device.pallas_call(
         kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((n_tiles + 1, FWD_ROWS, n_px), jnp.float32),
-        interpret=jax.default_backend() != "tpu",
-    )(starts_pad, cbase, tile_of[::u], meta, blktab,
-      pidwin.reshape(ncb // u, u, -1), att_tab)
-    out = out[:n_tiles]
-    empty = (starts[1:] == starts[:-1])[:, None, None]
-    base = jnp.concatenate(
-        [
-            jnp.zeros((1, 3, 1), jnp.float32),
-            jnp.ones((1, 2, 1), jnp.float32),
-            jnp.zeros((1, FWD_ROWS - 5, 1), jnp.float32),
-        ],
-        axis=1,
-    )
-    return jnp.where(empty, base, out)
-
-
-def _bwd_call(att_tab, pidwin, blktab, starts, cbase, tile_of, ty0,
-              fwd_out, ct_img, ct_T, tiles_x, band_rows, cfg: RenderConfig):
-    ts = cfg.tile_size
-    n_px = ts * ts
-    n_tiles = tiles_x * band_rows
-    ncb = pidwin.shape[0]
-    n_pad = att_tab.shape[1]
-    k_slots = cfg.tile_span * cfg.tile_span
-    nbx = _ceil(tiles_x, cfg.stream_block_tiles)
-    starts_pad = jnp.concatenate([starts, starts[-1:]])
-    meta = _meta(ty0, tiles_x, nbx, cfg.stream_block_tiles)
-    ct = jnp.concatenate([ct_img, ct_T[:, None, :]], axis=1)
-    ct = jnp.concatenate([ct, jnp.zeros((1, 4, n_px), jnp.float32)], axis=0)
-    fwd_pad = jnp.concatenate(
-        [fwd_out, jnp.zeros((1, FWD_ROWS, n_px), jnp.float32)], axis=0
-    )
-    dzero = jnp.zeros((GRAD_ROWS, n_pad), jnp.float32)
-
-    u = cfg.stream_unroll
-    ngrp = ncb // u
-    kernel = partial(
-        _stream_bwd_kernel,
-        ts=ts,
-        chunk=cfg.chunk,
-        k_slots=k_slots,
-        n_tiles=n_tiles,
-        nbx=nbx,
-        dmach=cfg.stream_dma_chunk,
-        cap=cfg.stream_band_cap,
-        alpha_clamp=cfg.alpha_clamp,
-        alpha_min=cfg.alpha_min,
-        eps_T=cfg.transmittance_eps,
-        unroll=u,
-        tab_rows=_tab_rows(cfg),
-    )
-
-    def slot_idx(j, st, cb, tof, m, bt):
-        # groups process in reverse; dead groups collapse to block 0
-        # (one fetch per dead run)
-        g = ngrp - 1 - j
-        return (jnp.where(tof[g] == n_tiles, 0, g), 0, 0)
-
-    def tile_idx(j, st, cb, tof, m, bt):
-        return (tof[ngrp - 1 - j], 0, 0)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=5,
-        grid=(ngrp,),
-        in_specs=[
-            pl.BlockSpec(
-                (1, u, _win_lanes(cfg.chunk)), slot_idx,
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec((1, 4, n_px), tile_idx, memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, FWD_ROWS, n_px), tile_idx, memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec((1, 8, n_px), tile_idx, memory_space=pltpu.VMEM),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((_tab_rows(cfg), cfg.stream_band_cap), jnp.bfloat16),
-            pltpu.VMEM((GRAD_ROWS, cfg.stream_band_cap), jnp.float32),
-            pltpu.VMEM((GRAD_ROWS, cfg.stream_band_cap), jnp.float32),
-            pltpu.SemaphoreType.DMA,
-            pltpu.SemaphoreType.DMA,
-            pltpu.SMEM((2,), jnp.int32),
-        ]
-        + (
-            [pltpu.VMEM((k_slots * cfg.chunk, WINW), jnp.bfloat16)]
-            if cfg.stream_oh_cache
-            else []
-        ),
-    )
-    dgrad, _state = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
+        num_warps=_NUM_WARPS,
+        grid=(n_tiles,),
         out_shape=[
-            jax.ShapeDtypeStruct((GRAD_ROWS, n_pad), jnp.float32),
-            jax.ShapeDtypeStruct((n_tiles + 1, 8, n_px), jnp.float32),
+            jax.ShapeDtypeStruct((n_tiles, 4, n_px), jnp.float32),
+            jax.ShapeDtypeStruct((n_tiles, n_px), jnp.int32),
         ],
-        input_output_aliases={7: 0},  # dzero (after 5 prefetch + 2 inputs)
-        interpret=jax.default_backend() != "tpu",
-    )(
-        starts_pad, cbase, tile_of[::u], meta, blktab,
-        pidwin.reshape(ngrp, u, -1), att_tab, dzero, ct, fwd_pad,
+        name="blend_fwd",
+    )(_meta(ty0), starts, att)
+
+
+def _bwd_call(att, starts, ty0, T_act, last, ct, tiles_x: int,
+              band_rows: int, cfg: RenderConfig):
+    kernel = partial(
+        _bwd_kernel, ts=cfg.tile_size, tiles_x=tiles_x,
+        alpha_clamp=cfg.alpha_clamp, alpha_min=cfg.alpha_min,
     )
-    return dgrad  # [GRAD_ROWS, NP]
+    return device.pallas_call(
+        kernel,
+        num_warps=_NUM_WARPS,
+        grid=(tiles_x * band_rows,),
+        out_shape=jax.ShapeDtypeStruct(att.shape, jnp.float32),
+        input_output_aliases={6: 0},
+        name="blend_bwd",
+    )(_meta(ty0), starts, att, T_act, last, ct, jnp.zeros_like(att))
+
+
+def _meta(ty0):
+    return jnp.asarray(ty0, jnp.int32).reshape(1)
+
+
+def _check(cfg: RenderConfig):
+    n_px = cfg.tile_size * cfg.tile_size
+    if n_px & (n_px - 1):
+        raise ValueError(
+            f"tile_size={cfg.tile_size}: the Triton blend needs a "
+            "power-of-two pixel count per tile"
+        )
 
 
 # --------------------------------------------------------------------------
@@ -1132,47 +250,39 @@ def _bwd_call(att_tab, pidwin, blktab, starts, cbase, tile_of, ty0,
 # --------------------------------------------------------------------------
 
 
-@partial(jax.custom_vjp, nondiff_argnums=(7, 8, 9))
-def blend_stream(cols, pidwin, blktab, starts, cbase, tile_of, ty0,
-                 tiles_x, band_rows, cfg):
-    """Stream tile blend. cols = 9 home-layout f32 columns
-    (mx, my, conic a/b/c, r, g, b, opacity), each [N].
-    Returns (img [T, n_px, 3], T_act [T, n_px])."""
-    n_pad = _table_pad(cols[0].shape[0], cfg)
-    att_tab = att_cols_table(cols, n_pad, exact=cfg.stream_exact_table)
-    out = _fwd_call(att_tab, pidwin, blktab, starts, cbase, tile_of,
-                    ty0, tiles_x, band_rows, cfg)
-    return jnp.swapaxes(out[:, 0:3, :], 1, 2), out[:, 3, :]
+@partial(jax.custom_vjp, nondiff_argnums=(4, 5, 6))
+def blend_stream(cols, pid, starts, ty0, tiles_x, band_rows, cfg):
+    """Stream tile blend. cols = 9 home-row f32 columns (mx, my, conic
+    a/b/c, r, g, b, opacity), each [NH]; pid [S] the tile-major,
+    near-to-far pair stream (pid = home row·9 + class); starts [T+1] its
+    tile segments. Returns (img [T, n_px, 3], T_act [T, n_px])."""
+    return _blend_stream_fwd(cols, pid, starts, ty0, tiles_x, band_rows,
+                             cfg)[0]
 
 
-def _table_pad(n, cfg):
-    d = cfg.stream_dma_chunk
-    return _ceil(n, d) * d + d
-
-
-def _blend_stream_fwd(cols, pidwin, blktab, starts, cbase, tile_of,
-                      ty0, tiles_x, band_rows, cfg):
-    n_pad = _table_pad(cols[0].shape[0], cfg)
-    att_tab = att_cols_table(cols, n_pad, exact=cfg.stream_exact_table)
-    out = _fwd_call(att_tab, pidwin, blktab, starts, cbase, tile_of,
-                    ty0, tiles_x, band_rows, cfg)
-    res = (att_tab, pidwin, blktab, starts, cbase, tile_of, ty0, out,
-           cols[0].shape[0])
-    return (jnp.swapaxes(out[:, 0:3, :], 1, 2), out[:, 3, :]), res
+def _blend_stream_fwd(cols, pid, starts, ty0, tiles_x, band_rows, cfg):
+    _check(cfg)
+    k = cfg.tile_span * cfg.tile_span
+    att = pair_attrs(cols, pid, starts, k)
+    out, last = _fwd_call(att, starts, ty0, tiles_x, band_rows, cfg)
+    T_act = out[:, 3, :]
+    res = (att, pid, starts, ty0, T_act, last, cols[0].shape[0])
+    return (jnp.swapaxes(out[:, 0:3, :], 1, 2), T_act), res
 
 
 def _blend_stream_bwd(tiles_x, band_rows, cfg, res, cts):
-    (att_tab, pidwin, blktab, starts, cbase, tile_of, ty0, fwd_out,
-     n) = res
-    ct_img_t, ct_T = cts
-    ct_img = jnp.swapaxes(ct_img_t, 1, 2)
-    dgrad = _bwd_call(att_tab, pidwin, blktab, starts, cbase, tile_of,
-                      ty0, fwd_out, ct_img, ct_T, tiles_x, band_rows, cfg)
-    dcols = tuple(dgrad[i, :n] for i in range(ATT_COLS))
+    att, pid, starts, ty0, T_act, last, nh = res
+    ct_img, ct_T = cts
+    ct = jnp.concatenate(
+        [jnp.swapaxes(ct_img, 1, 2), ct_T[:, None, :]], axis=1
+    )
+    dpair = _bwd_call(att, starts, ty0, T_act, last, ct, tiles_x,
+                      band_rows, cfg)
+    k = cfg.tile_span * cfg.tile_span
+    d = pairs_to_rows(dpair, pid, starts, nh, k)
     f0 = jax.dtypes.float0
     z = lambda x: np.zeros(jnp.shape(x), f0)
-    return (dcols, z(pidwin), z(blktab), z(starts), z(cbase),
-            z(tile_of), z(ty0))
+    return (tuple(d[c] for c in range(ATT_COLS)), z(pid), z(starts), z(ty0))
 
 
 blend_stream.defvjp(_blend_stream_fwd, _blend_stream_bwd)
@@ -1181,6 +291,17 @@ blend_stream.defvjp(_blend_stream_fwd, _blend_stream_bwd)
 # --------------------------------------------------------------------------
 # render-pipeline integration
 # --------------------------------------------------------------------------
+
+
+def stream_cols(p):
+    """The blend's 9 attribute columns of projected (home-ordered)
+    splats."""
+    return (
+        p.mean2d[:, 0], p.mean2d[:, 1],
+        p.conic[:, 0], p.conic[:, 1], p.conic[:, 2],
+        p.rgb[:, 0], p.rgb[:, 1], p.rgb[:, 2],
+        p.opacity,
+    )
 
 
 def composite_tiles_stream(p, layout, bins, cam, cfg: RenderConfig):
@@ -1193,47 +314,12 @@ def composite_tiles_stream(p, layout, bins, cam, cfg: RenderConfig):
 
     if cfg.tile_span != 3:
         raise ValueError("stream backend requires tile_span == 3")
-    k_slots = cfg.tile_span * cfg.tile_span
     pid, starts, n_dropped = clipped_pair_stream(bins, cfg)
-    # repack pads carry sid = nh_pad (the expansion grid's padded row
-    # count) — exclude them from the one-hot window bounds
-    sid_dead = None
-    if cfg.pair_repack and not cfg.footprint_clamp:
-        from gsjax.render.binning import _EXPAND_R
-
-        nh = p.depth.shape[0]
-        sid_dead = -(-nh // _EXPAND_R) * _EXPAND_R
-    pidwin, tile_of, cbase = packed_pid_windows(pid, starts, cfg, sid_dead)
-    blktab, n_ovf = band_blocks(
-        layout.seg_starts, bins.ty0, bins.tiles_x, layout.tiles_y,
-        bins.band_rows, cfg, seg_row0=layout.seg_row0,
-        rows_present=layout.rows_present,
-    )
-    # means stored relative to each row's HOME-tile origin so the bf16
-    # hi/lo table error stays ~1e-4 px at any image resolution; the
-    # kernel adds the per-class home origin back (see _gather_att). The
-    # home tile comes from the layout (exact mode re-homes rows at block
-    # centers; legacy mode uses the mean's clipped tile). With the
-    # 3-way exact table the split is already f32-exact, so means stay
-    # ABSOLUTE (the origin reconstruction would round).
-    ts = float(cfg.tile_size)
-    if cfg.stream_exact_table:
-        mx_c, my_c = p.mean2d[:, 0], p.mean2d[:, 1]
-    else:
-        htx = layout.home_x.astype(jnp.float32)
-        hty = layout.home_y.astype(jnp.float32)
-        mx_c = p.mean2d[:, 0] - htx * ts
-        my_c = p.mean2d[:, 1] - hty * ts
-    cols = (
-        mx_c, my_c,
-        p.conic[:, 0], p.conic[:, 1], p.conic[:, 2],
-        p.rgb[:, 0], p.rgb[:, 1], p.rgb[:, 2],
-        p.opacity,
-    )
-    img_t, T_t = blend_stream(
-        cols, pidwin, blktab, starts, cbase, tile_of, bins.ty0,
-        bins.tiles_x, bins.band_rows, cfg,
-    )
+    with jax.named_scope("blend"):
+        img_t, T_t = blend_stream(
+            stream_cols(p), pid, starts, bins.ty0, bins.tiles_x,
+            bins.band_rows, cfg,
+        )
     img, T_map = assemble_band(img_t, T_t, bins, cfg)
     aux = {
         "transmittance": T_map,
@@ -1241,7 +327,7 @@ def composite_tiles_stream(p, layout, bins, cam, cfg: RenderConfig):
         "n_pairs": bins.n_pairs,
         "n_tile_overflow": jnp.zeros((), jnp.int32),
         "n_pair_overflow": n_dropped + bins.n_repack_overflow,
-        "n_band_overflow": n_ovf,
+        "n_band_overflow": jnp.zeros((), jnp.int32),
         "n_fat_overflow": layout.n_fat_overflow,
     }
     return img, aux

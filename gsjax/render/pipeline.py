@@ -1,7 +1,7 @@
 """The render entry point: one pure, jit-able, differentiable function
 `render(gaussians, camera, cfg) -> image`.
 
-This is the TPU-native replacement for the reference's whole render loop —
+This is the replacement for the reference's whole render loop —
 WebGLRenderer.render (/root/reference/src/renderers/WebGLRenderer.ts:
 241-296), the async sort worker round-trip (:269, Worker.ts:36-43), and
 the instanced draw (:290) — collapsed into one jitted step:
@@ -11,15 +11,16 @@ Backends:
   oracle — O(N·pixels) pure-jnp ground truth (render/oracle.py)
   xla    — binned, vectorized jnp (render/binning.py + composite.py),
            differentiable by autodiff
-  pallas — fused slot-stream kernels (render/pallas_flat.py), custom VJP
-  stream — gather-free home-layout kernels (render/pallas_stream.py)
-  auto   — pallas on TPU, xla elsewhere
+  stream — home layout + the Triton tile blend (render/pallas_stream.py),
+           hand-derived VJP
+  auto   — stream on the GPU, xla on the CPU (gsjax/device.py)
 """
 
 from __future__ import annotations
 
 import jax
 
+from gsjax import device
 from gsjax.core.camera import Camera
 from gsjax.core.config import RenderConfig
 from gsjax.core.gaussians import Gaussians
@@ -27,12 +28,6 @@ from gsjax.render.binning import build_tile_bins
 from gsjax.render.composite import composite_tiles
 from gsjax.render.oracle import render_oracle
 from gsjax.render.project import project
-
-
-def _resolve_backend(cfg: RenderConfig) -> str:
-    if cfg.backend != "auto":
-        return cfg.backend
-    return "pallas" if jax.default_backend() == "tpu" else "xla"
 
 
 def _project_any(g, cam, cfg):
@@ -56,7 +51,7 @@ def render(
     field (and the camera pose/intrinsics). `passes` are post-projection
     transformations (gsjax.render.passes ≙ the reference's ShaderPass
     hook)."""
-    backend = _resolve_backend(cfg)
+    backend = device.resolve_backend(cfg.backend)
     if backend == "oracle":
         from gsjax.core.banded import BandedGaussians
 
@@ -85,14 +80,9 @@ def render(
         p, layout = build_home_layout(p, cam, cfg)
         bins = build_tile_bins(p, cam, cfg, anchor="home", layout=layout)
         fat_ovf = layout.n_fat_overflow
-    if backend == "xla":
-        img, aux = composite_tiles(p, bins, cam, cfg)
-    elif backend == "pallas":
-        from gsjax.render.composite import composite_tiles_flat
-
-        img, aux = composite_tiles_flat(p, bins, cam, cfg)
-    else:
+    if backend != "xla":
         raise ValueError(f"unknown backend {backend!r}")
+    img, aux = composite_tiles(p, bins, cam, cfg)
     if fat_ovf is not None:
         aux["n_fat_overflow"] = fat_ovf
     img = img[: cam.height, : cam.width]
@@ -105,16 +95,19 @@ def render(
 
 def _render_stream(g, cam, cfg, return_aux, passes):
     """Stream backend: project → home-layout re-sort (+ fat-splat split
-    in exact mode) → home-anchored bins → gather-free Pallas blend
+    in exact mode) → home-anchored bins → Triton blend
     (render/pallas_stream.py)."""
     from gsjax.render.homesort import build_home_layout
     from gsjax.render.pallas_stream import composite_tiles_stream
 
-    p = _project_any(g, cam, cfg)
+    with jax.named_scope("project"):
+        p = _project_any(g, cam, cfg)
     for ps in passes:
         p = ps(p, cam, cfg)
-    p, layout = build_home_layout(p, cam, cfg)
-    bins = build_tile_bins(p, cam, cfg, anchor="home", layout=layout)
+    with jax.named_scope("home_layout"):
+        p, layout = build_home_layout(p, cam, cfg)
+    with jax.named_scope("binning"):
+        bins = build_tile_bins(p, cam, cfg, anchor="home", layout=layout)
     img, aux = composite_tiles_stream(p, layout, bins, cam, cfg)
     img = img[: cam.height, : cam.width]
     aux["transmittance"] = aux["transmittance"][: cam.height, : cam.width]

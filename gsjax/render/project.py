@@ -60,7 +60,7 @@ def project(
 ) -> ProjectedSplats:
     view = cam.view_matrix()  # [4,4] world→camera
     W = view[:3, :3]
-    # elementwise [N,3]·[3,3] (a jnp.matmul here pads K=3 onto the MXU)
+    # elementwise [N,3]·[3,3]: exact f32, no matmul precision question
     t_cam = (
         jnp.sum(g.means[:, None, :] * W[None, :, :], axis=-1) + view[:3, 3]
     )  # [N,3]
@@ -86,8 +86,8 @@ def project(
     j12 = -fy * ty * inv_z2
 
     # T = J @ W  (2×3); cov2d = T Σ Tᵀ  (≙ vertex.glsl.ts:154-155).
-    # Everything stays elementwise — expressing Σ as batched 3×3 matmuls
-    # makes XLA pad each one onto the 128×128 MXU (measured 20× slower).
+    # Everything stays elementwise: batched 3×3 products are too small
+    # for a matrix unit and would inherit the default matmul precision.
     T0 = j00[:, None] * W[0][None, :] + j02[:, None] * W[2][None, :]  # [N,3]
     T1 = j11[:, None] * W[1][None, :] + j12[:, None] * W[2][None, :]  # [N,3]
 

@@ -1,11 +1,10 @@
 """Bucket-repack pair sort: balanced 2-D row sorts replace the global
 (tile, depth) lax.sort.
 
-The production pair sort was one 1-D 3-operand `lax.sort` over the whole
-class-major candidate stream (~24.3M slots, ~95 ms at the 1080p bench —
-~4 ns/elem, superlinear). 2-D batched row sorts cost ~1.1 ns/elem at the
-same total (tools/probe_repack.py, realistic keys), so this module cuts
-the stream into balanced rows of `cfg.repack_w` lanes — each row a
+The plain pair sort is one 1-D 3-operand `lax.sort` over the whole
+class-major candidate stream, whose cost grows superlinearly with its
+length. This module instead cuts the stream into balanced rows of
+`cfg.repack_w` lanes — each row a
 contiguous RANGE OF TILES' candidate runs — sorts rows independently,
 and compacts the per-row live prefixes into one gapless stream.
 
@@ -16,7 +15,7 @@ Why rows of whole tiles decompose the sort exactly:
     dx (off0 = ty0 − seg_row0). For consecutive tiles the slices are
     consecutive, so a row covering tiles [τa, τb] needs only NINE
     contiguous source ranges — gathered at 128-lane block granularity
-    (~0.15 ns/elem) instead of per element.
+    instead of per element.
   * a VALID candidate in segment s, class c always stores tile id
     s − Kc in the expansion output (linear identity, wraps go INVALID),
     so masking gathered keys to [τa, τb] exactly partitions candidates
@@ -27,14 +26,14 @@ Why rows of whole tiles decompose the sort exactly:
     per-tile sequences BIT-IDENTICALLY (same pid tie rule).
 
 The compacted stream pads each row's live prefix to a 128 multiple with
-provably-dead pairs (pid = n_rows·k_slots → a zero column of the blend's
-attribute table), so downstream window math stays block-aligned; the
+provably-dead pairs (pid = n_rows·k_slots: a home row past the table,
+which the blend reads as zero opacity), so rows stay block-aligned; the
 remaining tail is INVALID. Every capacity loss (row width, output cap)
 is counted in n_repack_overflow — never silent.
 
 This replaces the reference's single native component — the O(N) WASM
 counting sort (/root/reference/wasm/wasm.cpp:33-51) — with the
-TPU-native equivalent SURVEY §2.2 calls for: the counting-sort structure
+on-device equivalent SURVEY §2.2 calls for: the counting-sort structure
 generalized to (tile, depth) keys as balanced on-device partition +
 batched sort, fused into the jitted step.
 """
@@ -125,12 +124,11 @@ def repack_pair_sort(
 
     # row boundaries: GREEDY packing — each row takes whole tiles while
     # its candidate total fits the row minus the block-rounding slack.
-    # A fixed Q-stride grid overflows wherever a dense tile (up to ~17k
-    # candidates at the 1080p bench, tools/probe_repack.py) lands on a
+    # A fixed Q-stride grid overflows wherever a dense tile lands on a
     # filled row; greedy exclusion of the straddling tile caps every
     # row's content at w_eff by construction (a single tile > w_eff
     # still overflows — counted below). Sequential scan of R scalar
-    # searchsorteds (~1-2 µs each).
+    # searchsorteds.
     w_eff = W - k_slots * 2 * (_G - 1) - _G
 
     def _bound(b, _):
@@ -178,13 +176,8 @@ def repack_pair_sort(
     used = j < jnp.minimum(nbtot, WB)[:, None]
     srcblk = jnp.where(used, srcblk, 0)
 
-    # gathers (priced per 128-lane row) + in-place payload reconstruction.
-    # The source MUST be assembled by concatenating per-class [NB, G]
-    # reshapes: a row gather from `tile2d.reshape(-1, G)` (the direct
-    # [9, NH]→[9·NB, G] reshape) CRASHES the TPU runtime at certain NH
-    # (reproduced at nh_pad=2662400/NB=20800, fine at 2703360 — an XLA
-    # lowering fault, not an OOB; /tmp repro kept in tools/probe_repack.py
-    # docstring history)
+    # 128-lane block gathers + in-place payload reconstruction; the
+    # source is assembled by concatenating per-class [NB, G] reshapes
     flat = jnp.concatenate(
         [tile2d[c].reshape(-1, _G) for c in range(k_slots)], axis=0
     )
@@ -236,14 +229,11 @@ def repack_pair_sort(
     in_any = jnp.arange(cap_out, dtype=jnp.int32) < dstblk[R] * _G
     keep2 = in_any & (pos_in_row < live_l)
     pad2 = in_any & (pos_in_row < livep_l)
-    # pad tile = the row's LAST LIVE tile (not the last covered tile,
-    # which can have zero candidates — its band block might then have
-    # zero loaded extent, and the blend's sentinel-window rounds would
-    # read unloaded scratch lanes). It is >= every live tile in the row
-    # and < the next row's first live tile, so the stream stays globally
-    # sorted; pad pid (nh_pad·K) decodes to a home row past every real
-    # one — provably dead in the blend, and masked out of the pid-window
-    # bounds via sid_dead (pallas_stream.packed_pid_windows)
+    # pad tile = the row's LAST LIVE tile: it is >= every live tile in
+    # the row and < the next row's first live tile, so the stream stays
+    # globally sorted; pad pid (nh_pad·K) decodes to a home row past
+    # every real one, which the blend reads as zero opacity
+    # (pallas_stream.pair_attrs)
     last_live = jnp.take_along_axis(
         keys, jnp.maximum(live - 1, 0)[:, None], axis=1
     )[:, 0]  # [R]; garbage (INVALID) only when live == 0 ⇒ no pads

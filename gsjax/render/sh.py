@@ -84,6 +84,7 @@ def eval_sh(sh: jnp.ndarray, dirs: jnp.ndarray) -> jnp.ndarray:
     """
     k = sh.shape[-2]
     basis = sh_basis(dirs, k)  # [..., K]
-    # elementwise contraction (an einsum here pads K≤16 onto the MXU)
+    # elementwise contraction (exact f32; an einsum would inherit the
+    # default matmul precision)
     rgb = jnp.sum(basis[..., :, None] * sh, axis=-2) + 0.5
     return jnp.maximum(rgb, 0.0)

@@ -1,6 +1,6 @@
 """Headless viewer: render camera trajectories to PNG frames.
 
-The TPU-native form of the reference's browser render loop + controls
+The headless form of the reference's browser render loop + controls
 (/root/reference/examples/*/src/main.ts requestAnimationFrame loops and
 OrbitControls): instead of an interactive canvas, a jitted render step
 walks a camera trajectory and writes frames — the fade-in pass animates

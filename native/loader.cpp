@@ -1,6 +1,6 @@
 // gsjax native IO: fast 3DGS PLY vertex decoding.
 //
-// TPU-native counterpart of the reference's ingest hot loop — the
+// Native counterpart of the reference's ingest hot loop — the
 // per-vertex DataView parse in /root/reference/src/loaders/PLYLoader.ts
 // :578-712 (and the spirit of its only native component, wasm/wasm.cpp:
 // the part of the pipeline too hot for the host language). Decodes

@@ -2,8 +2,8 @@
 camera pose (position, quat) and intrinsics (fx, fy) on every backend
 (the claim at render/pipeline.py). Ground truth = oracle autodiff.
 
-Camera gradients flow only through projection (mean2d/conic/rgb) and
-the stream path's home-origin-relative columns; the layout machinery
+Camera gradients flow only through projection (mean2d/conic/rgb); the
+layout machinery
 (home sort keys, tile ids, segment starts) is integer-valued so no
 cotangent can leak through it. These tests prove the chain is complete.
 """
@@ -43,14 +43,7 @@ def _loss_fn(g, tgt, cfg):
 
 CFGS = {
     "xla": RenderConfig(backend="xla", tile_list_cap=256, chunk=32),
-    "pallas": RenderConfig(backend="pallas", chunk=32),
-    "stream": RenderConfig(
-        backend="stream",
-        chunk=32,
-        stream_band_cap=4096,
-        stream_block_tiles=3,
-        stream_dma_chunk=256,
-    ),
+    "stream": RenderConfig(backend="stream", chunk=32),
 }
 
 

@@ -226,11 +226,8 @@ BACKENDS = {
     "oracle": RenderConfig(backend="oracle"),
     "xla": RenderConfig(backend="xla", tile_list_cap=512, chunk=32,
                         tile_span=9),
-    "pallas": RenderConfig(backend="pallas", chunk=32, tile_span=9),
     "stream": RenderConfig(
-        backend="stream", chunk=32, stream_band_cap=4096,
-        stream_block_tiles=3, stream_dma_chunk=256,
-        fat_max_blocks=64, fat_cap=512),
+        backend="stream", chunk=32, fat_max_blocks=64, fat_cap=512),
 }
 
 
@@ -254,8 +251,8 @@ def test_backends_match_golden(goldens, backend):
             # exact exp, f32 vs f64: tight
             assert d.max() < 1e-4, (name, d.max())
         else:
-            # fexp ~1e-4 relative + bf16 attribute split can flip
-            # alpha_min/termination inclusion on isolated pixels
+            # f32 accumulation order can flip alpha_min/termination
+            # inclusion on isolated pixels
             assert np.percentile(d, 99.5) < 1e-3, (name, np.percentile(d, 99.5))
             assert d.max() < 2e-2, (name, d.max())
 

@@ -37,9 +37,6 @@ from gsjax.render.lazy import (
 CFG = RenderConfig(
     backend="stream",
     chunk=32,
-    stream_band_cap=4096,
-    stream_block_tiles=3,
-    stream_dma_chunk=256,
     fat_max_blocks=64,
     fat_cap=8192,
     fat_live_cap=4096,

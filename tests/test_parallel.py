@@ -10,7 +10,12 @@ import pytest
 
 from gsjax import Camera, RenderConfig, render
 from gsjax.parallel.mesh import make_mesh, padded_height
-from gsjax.parallel.render_sharded import make_train_step, pad_target, render_sharded
+from gsjax.parallel.render_sharded import (
+    make_train_step,
+    pad_target,
+    pad_target_rows,
+    render_sharded,
+)
 from conftest import make_random_scene
 
 CFG = RenderConfig(backend="xla", tile_list_cap=256, chunk=64)
@@ -80,14 +85,12 @@ def test_sharded_train_step_decreases_loss_and_matches_grads(rng, mesh8):
 
 
 def test_sharded_stream_backend_matches_single_device(rng, mesh8):
-    """The stream Pallas path (interpret mode on CPU) under shard_map:
+    """The stream path (Triton kernels in interpret mode on CPU) under
+    shard_map:
     each device home-sorts, bins, and blends only its own tile band."""
     cfg = RenderConfig(
         backend="stream",
         chunk=32,
-        stream_band_cap=4096,
-        stream_block_tiles=3,
-        stream_dma_chunk=256,
     )
     g = make_random_scene(rng, n=200, spread=1.2, z_range=(3.0, 8.0))
     cam = _cam()
@@ -146,9 +149,6 @@ def test_sharded_stream_grads_match_replicated(rng, mesh8):
     cfg = RenderConfig(
         backend="stream",
         chunk=32,
-        stream_band_cap=4096,
-        stream_block_tiles=3,
-        stream_dma_chunk=256,
     )
     g = make_random_scene(rng, n=150, spread=1.2, z_range=(3.0, 8.0))
     cam = _cam()
@@ -180,9 +180,6 @@ def test_sharded_stream_uneven_band_split(rng, mesh8):
     cfg = RenderConfig(
         backend="stream",
         chunk=32,
-        stream_band_cap=4096,
-        stream_block_tiles=3,
-        stream_dma_chunk=256,
     )
     g = make_random_scene(rng, n=200, spread=1.4, z_range=(3.0, 8.0))
     cam = Camera.create(fx=120, fy=120, width=96, height=144)
@@ -288,9 +285,6 @@ def test_equalized_row_cuts_match_replicated(rng, mesh8):
     cfg = RenderConfig(
         backend="stream",
         chunk=32,
-        stream_band_cap=4096,
-        stream_block_tiles=3,
-        stream_dma_chunk=256,
     )
     g = make_random_scene(rng, n=150, spread=1.2, z_range=(3.0, 8.0))
     cam = _cam()  # 96x128 -> 8 tile rows
@@ -314,3 +308,26 @@ def test_equalized_row_cuts_match_replicated(rng, mesh8):
     for k in ("n_pair_overflow", "n_band_overflow", "n_tile_overflow",
               "n_fat_overflow"):
         assert int(aux_eq[k]) == 0, (k, dict(aux_eq))
+
+
+def test_sharded_loss_ignores_pixels_past_the_image(rng):
+    """Height and width not multiples of the tile: the bands' last tile
+    row/column reach past the image, where the render is not black. The
+    sharded loss and gradients must equal jnp.mean over the cropped
+    single-device render."""
+    from gsjax.parallel.render_sharded import make_grad_equalized
+
+    g = make_random_scene(rng, n=150, spread=1.3)
+    cam = Camera.create(fx=60, fy=60, width=56, height=40)
+    tgt = jnp.asarray(rng.uniform(0, 1, (40, 56, 3)), jnp.float32)
+    loss1, g1 = jax.value_and_grad(
+        lambda g: jnp.mean((render(g, cam, CFG) - tgt) ** 2)
+    )(g)
+    cuts = [0, 1, 3]
+    loss2, g2, _ = make_grad_equalized(cam, CFG, make_mesh(2), cuts)(
+        g, pad_target_rows(CFG, cam, tgt, 2)
+    )
+    assert float(loss2) == pytest.approx(float(loss1), rel=1e-5)
+    for a, b in zip(jax.tree.leaves(g1), jax.tree.leaves(g2)):
+        np.testing.assert_allclose(np.asarray(b), np.asarray(a),
+                                   rtol=1e-4, atol=1e-7)

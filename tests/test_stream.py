@@ -1,9 +1,9 @@
 """Stream backend (render/pallas_stream.py) vs the XLA backend.
 
-The stream backend must reproduce the XLA backend bit-closely (same pair
-enumeration per binning anchor equivalence, same blend semantics; the
-only noise is the bf16 hi/lo attribute split, ~1e-5 relative) — forward
-AND gradients, across band-row / column-block configurations.
+The stream backend must reproduce the XLA backend closely (same pair
+enumeration per binning anchor equivalence, same blend semantics, f32
+attributes; only the accumulation order differs) — forward AND
+gradients, over one and several tile rows.
 """
 
 import dataclasses
@@ -29,15 +29,9 @@ def _cams(w, h):
     )
 
 
-def _cfgs(chunk=32, **kw):
+def _cfgs(chunk=32):
     cfg_x = RenderConfig(backend="xla", tile_list_cap=256, chunk=chunk)
-    cfg_s = RenderConfig(
-        backend="stream",
-        chunk=chunk,
-        stream_band_cap=kw.pop("band_cap", 4096),
-        stream_block_tiles=kw.pop("block_tiles", 3),
-        stream_dma_chunk=kw.pop("dma_chunk", 256),
-    )
+    cfg_s = RenderConfig(backend="stream", chunk=chunk)
     return cfg_x, cfg_s
 
 
@@ -52,12 +46,12 @@ def test_stream_forward_matches_xla(rng, w, h):
     cfg_x, cfg_s = _cfgs()
     ix = render(g, cam, cfg_x)
     s, aux = render(g, cam, cfg_s, return_aux=True)
-    assert int(aux["n_band_overflow"]) == 0
+    assert int(aux["n_pair_overflow"]) == 0
     d = np.abs(np.asarray(ix) - np.asarray(s))
-    # the bf16 hi/lo attribute noise (~1e-5) can flip alpha_min /
-    # termination inclusion for isolated splat-pixel pairs — a real
-    # discontinuity of the renderer, not an error; bound the bulk tightly
-    # and the flips loosely
+    # accumulation-order rounding can flip alpha_min / termination
+    # inclusion for isolated splat-pixel pairs — a real discontinuity of
+    # the renderer, not an error; bound the bulk tightly and the flips
+    # loosely
     assert (d > 5e-4).mean() < 0.01, (d > 5e-4).mean()
     assert d.max() < 5e-3, d.max()
 
@@ -154,21 +148,6 @@ def test_stream_grads_match_xla(rng):
         assert rel.max() < 1e-1, (f, rel.max())
 
 
-def test_stream_band_overflow_is_counted(rng):
-    g = make_random_scene(rng, n=500, spread=0.3, z_range=(3.0, 6.0))
-    cam = _cams(48, 32)
-    # cap far below the dense center band: must be detected, not silent
-    cfg = RenderConfig(
-        backend="stream",
-        chunk=32,
-        stream_band_cap=256,
-        stream_block_tiles=3,
-        stream_dma_chunk=128,
-    )
-    _, aux = render(g, cam, cfg, return_aux=True)
-    assert int(aux["n_band_overflow"]) > 0
-
-
 def test_home_anchor_equals_rect_anchor(rng):
     """Legacy span-budget mode: both anchors enumerate the identical
     clamped (tile, depth) pair set."""
@@ -190,47 +169,3 @@ def test_home_anchor_equals_rect_anchor(rng):
     np.testing.assert_array_equal(
         np.asarray(br.pid_sorted[:n]) // k, np.asarray(bh.pid_sorted[:n]) // k
     )
-
-
-def test_stream_exact_table_matches_xla_tight(rng):
-    """stream_exact_table=True: the 3-way-bf16-split table reconstructs
-    every attribute EXACTLY (absolute means, no origin round-off), so
-    stream vs xla agree to accumulation-order rounding — orders of
-    magnitude tighter than the default-mode tolerance (VERDICT r2 weak
-    #6: 'a table-f32 exact mode would pin it')."""
-    import dataclasses
-
-    g = make_random_scene(rng, n=400, sh_degree=1, spread=1.3, z_range=(3.0, 9.0))
-    cam = _cams(96, 64)
-    cfg_x, cfg_s = _cfgs()
-    cfg_s = dataclasses.replace(cfg_s, stream_exact_table=True)
-    ix = np.asarray(render(g, cam, cfg_x))
-    s, aux = render(g, cam, cfg_s, return_aux=True)
-    assert int(aux["n_band_overflow"]) == 0
-    d = np.abs(ix - np.asarray(s))
-    # only transmittance-product accumulation order differs
-    assert d.max() < 2e-5, d.max()
-
-
-def test_stream_oh_cache_grads_bit_equal(rng):
-    """stream_oh_cache=True: the backward's transposed scatter reuses
-    the one-hot matrices the in-kernel gather rounds stored in a VMEM
-    scratch instead of rebuilding the identical compare chains. The
-    cached values ARE the rebuilt values, so gradients must be
-    BIT-EQUAL to the uncached backward — any mismatch means the cache
-    slot/round bookkeeping is wrong, not a tolerance question."""
-    g = make_random_scene(rng, n=300, sh_degree=1, spread=1.2, z_range=(3.0, 8.0))
-    cam = _cams(96, 64)
-    tgt = jnp.asarray(rng.uniform(0, 1, (64, 96, 3)), jnp.float32)
-    _, cfg_s = _cfgs()
-    cfg_c = dataclasses.replace(cfg_s, stream_oh_cache=True)
-
-    def loss(g, cfg):
-        img = render(g, cam, cfg)
-        return jnp.mean((img - tgt) ** 2)
-
-    g0 = jax.grad(lambda g: loss(g, cfg_s))(g)
-    g1 = jax.grad(lambda g: loss(g, cfg_c))(g)
-    for f in ["means", "log_scales", "quats", "sh", "opacity_logits"]:
-        a, b = np.asarray(getattr(g0, f)), np.asarray(getattr(g1, f))
-        assert np.array_equal(a, b), (f, np.abs(a - b).max())

@@ -66,3 +66,22 @@ def test_crop_box_drops_rows(rng):
     m = np.asarray(g2.means)
     assert g2.n < 40
     assert np.all(np.abs(m[:, 0]) <= 0.5) and np.all(np.abs(m[:, 1]) <= 0.5)
+
+
+def test_rotated_means_match_float64(rng):
+    """The rotation is pinned to full f32 precision (a default-precision
+    f32 matmul may run in TF32 on the GPU, ~1e-3 relative)."""
+    g = make_random_scene(rng, n=200, spread=50.0, z_range=(100.0, 900.0))
+    q = np.array([0.8, -0.3, 0.4, 0.2])
+    q /= np.linalg.norm(q)
+    w, x, y, z = q
+    R = np.array(
+        [
+            [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+            [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+            [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+        ]
+    )
+    want = np.asarray(g.means, np.float64) @ R.T
+    got = np.asarray(transforms.rotate(g, q).means, np.float64)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())

@@ -5,12 +5,11 @@ at 1, 2, 4, 8 devices: per-step wall clock, scaling efficiency vs the
 1-device run, and the per-device WORK split (max pairs binned/composited
 on any one device — the quantity that actually scales 1/D).
 
-NOTE on this environment: only virtual CPU devices are available (one
-real TPU chip, no multi-chip slice), and virtual devices share the same
-host cores — total CPU work is constant, so WALL-CLOCK cannot improve
-with D here; the work-split column is the meaningful scaling signal.
-On a real pod slice the same code runs over ICI/DCN unchanged
-(--platform tpu), where wall clock tracks the work split.
+With --platform cpu (virtual CPU devices sharing the same host cores)
+total work is constant, so WALL-CLOCK cannot improve with D; the
+work-split column is the scaling signal there. With --platform gpu the
+same code runs over the host's GPUs, where wall clock tracks the work
+split.
 
   python tools/bench_scaling.py [--n 200000] [--wh 960x512] [--steps 5]
 """
@@ -28,7 +27,7 @@ def main():
     ap.add_argument("--n", type=int, default=200_000)
     ap.add_argument("--wh", default="960x512")
     ap.add_argument("--steps", type=int, default=5)
-    ap.add_argument("--platform", default="cpu", choices=["cpu", "tpu"])
+    ap.add_argument("--platform", default="cpu", choices=["cpu", "gpu"])
     ap.add_argument("--devices", type=int, nargs="*", default=[1, 2, 4, 8])
     args = ap.parse_args()
     W, H = map(int, args.wh.split("x"))

@@ -48,7 +48,7 @@ def main():
     t0 = time.perf_counter()
     cfg = derive_caps(g, cam, RenderConfig(backend="stream"))
     print(f"autotune {time.perf_counter()-t0:.1f}s: pair_cap={cfg.pair_cap} "
-          f"repack_rows={cfg.repack_rows} band_cap={cfg.stream_band_cap} "
+          f"repack_rows={cfg.repack_rows} "
           f"fat_cap={cfg.fat_cap} live_cap={cfg.fat_live_cap}", flush=True)
 
     opt = optax.adam(1e-3)
